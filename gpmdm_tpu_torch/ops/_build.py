@@ -1,0 +1,100 @@
+"""Build the CUDA kernels with nvcc and bind them with ctypes.
+
+The sources under ``ops/csrc/`` expose plain ``extern "C"`` launchers, so
+one ``nvcc`` call builds a shared library in seconds, with no PyTorch
+headers and no ninja.  The library lands in
+``build/torch_kernels/<sha256 of the sources and flags>/`` at the root of
+the checkout: written under a temporary name, then moved into place with
+``os.replace``, so concurrent first uses never see half a file and no lock
+file is needed.  nvcc's output, including the ``-Xptxas -v`` register and
+shared-memory report, goes to stderr.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "gp_posterior.cu",)
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+    "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v",
+)
+NVCC_TIMEOUT_S = 300
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# (restype, argtypes) of each launcher; pointers and the stream are c_void_p
+# so that ctypes never cuts a 64-bit address to a 32-bit int.
+_SIGNATURES = {
+    "gp_posterior_launch": (_I, [_P] * 8 + [_I] * 6 + [_P]),
+    "obs_loglik_launch": (_I, [_P] * 9 + [_I] * 4 + [_P]),
+    "gp_smem_bytes": (ctypes.c_size_t, [_I] * 5),
+}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()
+
+
+def build() -> Path:
+    """Compile the kernels if this source/flag hash has no library yet."""
+    out_dir = build_dir()
+    lib = out_dir / "libgpmdm_kernels.so"
+    if lib.exists():
+        return lib
+    nvcc = nvcc_path()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=".build-", suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=NVCC_TIMEOUT_S)
+        sys.stderr.write(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernel library, with every launcher's ctypes signature set."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib

@@ -41,6 +41,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips inside the test when none is present"
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
