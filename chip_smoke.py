@@ -10,10 +10,12 @@ Phases, each printing one JSON line on stdout:
              exits non-zero at once when CUDA is not available.
 2. build   - builds the CUDA kernels from ops/csrc with nvcc (its
              ``-Xptxas -v`` report goes to stderr).
-3. kernels - each kernel (K1 fused_x_posterior, K1' fused_rbf_posterior,
-             K2 fused_obs_loglik) at the main path's shapes from
-             bench_assets/bench_model.npz with 10,000 particles, against its
-             plain PyTorch version run in float64 on the card, twice:
+3. kernels - each posterior kernel (K1 fused_x_posterior, K1'
+             fused_rbf_posterior, K2 fused_obs_loglik) at the main path's
+             shapes from bench_assets/bench_model.npz with 10,000
+             particles, and K1 and K2 again on banks of 12 x 10,000 and
+             64 x 1,000 particles (K2 with one observation per bank), against
+             its plain PyTorch version run in float64 on the card, twice:
              - on the path's own inputs, where each output's max error
                must be <= 4 x the plain fp32 version's error against the
                same float64 result + 1e-6.  The fp32-deployed dynamics
@@ -25,12 +27,30 @@ Phases, each printing one JSON line on stdout:
                error must be <= 1e-4 x its median magnitude in float64.
              Times: device time of one call on the path's inputs, median of
              20, from CUDA events.
+             K3 resample_rank at (banks, particles) = (1, 10,000),
+             (12, 10,000), (64, 1,000) and (1, 100,000), on s from the
+             weights of a real frame of the filter and from seeded
+             Dirichlet weights (sorted, and shuffled): bit-identical to its
+             plain version.  Its library_ms is torch.searchsorted on the
+             real frame's s, sorted first (the card's fp32 cumsum can
+             leave s a step out of order; the count does not care).
 4. path    - pf_init + pf_scan, P = 10,000, over the 1000-frame stream of
              bench.py (seed 0); the kernel launch counters must rise by
-             exactly 1000 x (C + 1); frames/s is the best of 4 runs.
+             exactly 1000 x C (K1), 1000 (K2) and 1000 (K3); frames/s is
+             the best of 4 runs.
 5. guard   - evaluate_pf on the 12 held-out trials of bench.py (6 per
              class, seed 0, burn-in 5, P = 10,000); fails below 0.90 frame
              accuracy.
+6. banked_guard - evaluate_pf_banked on the same 12 trials, one bank of
+             10,000 particles per trial, padded to 64 frames; fails below
+             0.90 frame accuracy; the launch counters must rise by exactly
+             64 x (C + 2) in all (64 x C for K1, 64 for K2, 64 for K3).
+             Aggregate frames/s counts the trials' own frames (720), not
+             the padding (padded_agg_fps counts 12 x 64).
+7. fleet   - pf_scan_bank over 64 banks x 1,000 particles x 64 frames,
+             each bank streaming the path's first 64 frames (bench.py's
+             fleet); aggregate frames/s = banks x frames / wall, best of 4
+             runs, each of which must launch exactly 64 x (C + 2) kernels.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -39,6 +59,7 @@ a global deadline turns a hang into an exit with the phase it was in.
 
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import json
 import os
@@ -53,6 +74,10 @@ DEADLINE_S = 600
 N_PARTICLES = 10_000
 N_FRAMES = 1000
 TIMED_RUNS = 4
+FLEET_BANKS, FLEET_PARTICLES, FLEET_FRAMES = 64, 1000, 64
+# (banks, particles per bank) at which K3 is checked: the single filter,
+# the banked guard, the fleet, and the TPU kernel's design point
+RANK_SHAPES = [(1, 10_000), (12, 10_000), (64, 1000), (1, 100_000)]
 GUARD_MIN_FRAME_ACC = 0.90
 # a kernel's max error on the well-conditioned inputs, relative to the
 # output's median magnitude in float64
@@ -63,10 +88,12 @@ TRANSITIONS = [[0.9, 0.1], [0.1, 0.9]]
 PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "": (67e12, 3.35e12)}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = "gpmdm_tpu_torch/ops/csrc/gp_posterior.cu"
+RANK_CSRC = "gpmdm_tpu_torch/ops/csrc/resample_rank.cu"
 REPLACES = {
     "fused_x_posterior": "gpmdm_tpu/ops/pallas/gp_posterior.py:216",
     "fused_rbf_posterior": "gpmdm_tpu/ops/pallas/gp_posterior.py:216",
     "fused_obs_loglik": "gpmdm_tpu/ops/pallas/gp_posterior.py:347",
+    "resample_rank": "tools/exp_resample_rank_pallas.py:77",
 }
 
 _phase = ["start"]
@@ -120,10 +147,63 @@ def posterior_work(N, P, d, Dout, has_linear):
     return flops, nbytes
 
 
-def obs_work(N, P, d, D):
+def obs_work(N, P, d, D, n_z=1):
+    """(flops, bytes) of one observation weighting against n_z observations."""
     flops = N * P * (3 * d + 1) + 2 * N * D * P + 2 * N * N * P + 2 * N * P + 4 * D * P
-    nbytes = 4 * (N * d + P * d + d + N * D + N * N + 2 * D + 2 * P)
+    nbytes = 4 * (N * d + P * d + d + N * D + N * N + (n_z + 1) * D + 2 * P)
     return flops, nbytes
+
+
+def rank_work(B, Pb):
+    """(operations, bytes) of the rank: an increment and an add per
+    particle; 4 bytes of s in and 8 of idx out."""
+    return 2 * B * Pb, 12 * B * Pb
+
+
+def dirichlet_counts(B, Pb, seed, dev):
+    """s of systematic resampling from seeded Dirichlet(0.3) weights."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    w = rng.dirichlet(np.full(Pb, 0.3), size=B).astype(np.float32)
+    cum = np.cumsum(w, axis=1, dtype=np.float32)
+    u = rng.random((B, 1)).astype(np.float32)
+    s = np.clip(np.floor(Pb * cum - u).astype(np.int64) + 1, 0, Pb).astype(np.int32)
+    return torch.as_tensor(s, device=dev), torch.as_tensor(rng.permuted(s, axis=1), device=dev)
+
+
+def check_rank(rs, real_s, dirichlet, peaks):
+    """K3 at one (banks, particles) shape: bit-identical to its plain
+    version on the real frame's s and on Dirichlet s (sorted and
+    shuffled), then timed on the real frame's s beside its plain version
+    and torch.searchsorted."""
+    import torch
+
+    cases = {"frame": real_s, "dirichlet": dirichlet[0], "dirichlet_shuffled": dirichlet[1]}
+    errors = {}
+    for label, s in cases.items():
+        got, want = rs.resample_rank(s), rs.resample_rank_plain(s)
+        torch.cuda.synchronize()
+        errors[label] = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"resample_rank {tuple(s.shape)} {label}: differs from its "
+                                 f"plain version by up to {errors[label]}")
+    B, Pb = real_s.shape
+    # searchsorted needs sorted input, and the real frame's s may not be:
+    # the card's parallel fp32 cumsum can step down by an ulp.  The count
+    # does not depend on the order, so the yardstick searches the sorted s.
+    descents = int((real_s[:, 1:] < real_s[:, :-1]).sum())
+    sorted_s = torch.sort(real_s, dim=1).values
+    ranks = torch.arange(Pb, device=real_s.device, dtype=torch.int32).expand(B, Pb).contiguous()
+    library = lambda: torch.searchsorted(sorted_s, ranks, right=True)
+    if not torch.equal(torch.clamp(library(), max=Pb - 1), rs.resample_rank(real_s)):
+        raise AssertionError(f"torch.searchsorted disagrees with K3 at {(B, Pb)}")
+    bound_ms, bound_by = bound(*rank_work(B, Pb), peaks)
+    return {"shape": [B, Pb], "max_abs_err": max(errors.values()), "errors": errors,
+            "frame_s_descents": descents, "ms": time_ms(lambda: rs.resample_rank(real_s)),
+            "plain_ms": time_ms(lambda: rs.resample_rank_plain(real_s)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library)}
 
 
 def compare(name, kernel, plain, args):
@@ -217,7 +297,8 @@ def main(argv) -> int:
     from gpmdm_tpu_torch.filter import particle_filter as pf
     from gpmdm_tpu_torch.ops import _build
     from gpmdm_tpu_torch.ops import gp_posterior as gpk
-    from gpmdm_tpu_torch.utils.metrics import evaluate_pf
+    from gpmdm_tpu_torch.ops import resample as rs
+    from gpmdm_tpu_torch.utils.metrics import evaluate_pf, evaluate_pf_banked
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -274,9 +355,68 @@ def main(argv) -> int:
                      (post.X, xs, Ay_cond, Ky_cond, inv_ls_y, Z[0], lam2),
                      peaks, obs_work(Ny, P, d, D)),
     ]
+    offsets = model.layout.y_class_offsets
+
+    def bank_cloud(nb, pb):
+        """The initial cloud of nb banks of pb particles, flat, and a bank step
+        on the stream's first nb frames: its weights give K3 a real s."""
+        cfg_b = PFConfig(num_particles=pb, pallas="on")
+        g = torch.Generator(device=dev).manual_seed(nb * pb)
+        st = pf.pf_init_bank(post, offsets, g, cfg_b, nb)
+        new, _ = pf.pf_step_bank(st, Z[:nb], post, params, log_T, cfg, cfg_b, generator=g)
+        log_w = new.log_lik - torch.logsumexp(new.log_lik, 1, keepdim=True)
+        u = torch.rand(nb, generator=g, device=dev)
+        return st.x.reshape(nb * pb, d).contiguous(), pf.systematic_counts(u, log_w)
+
+    # K1 on the flat bank cloud, and K2 with one observation per bank (a
+    # block's particle tile straddles two banks: 10,000 and 1,000 are not
+    # multiples of 32 or 64), at the banked guard's and the fleet's shapes
+    frame_s = {}
+    kernels[0]["banked"], kernels[2]["banked"] = [], []
+    for nb, pb in RANK_SHAPES:
+        xb, frame_s[(nb, pb)] = bank_cloud(nb, pb)
+        if nb == 1:
+            continue
+        zb = Z[:nb].contiguous()
+        banked = (
+            (0, check_kernel("fused_x_posterior", gpk.fused_x_posterior,
+                             gpk.fused_x_posterior_plain,
+                             (post.Xin_c[0], xb, post.Axc[0], post.Kxc_inv[0], inv_ls_x,
+                              lin_w, n_max),
+                             (post.Xin_c[0], xb, Ax_cond, Kx_cond, inv_ls_x, lin_w, n_max),
+                             peaks, posterior_work(n_max, nb * pb, d, d, True))),
+            (2, check_kernel("fused_obs_loglik", gpk.fused_obs_loglik,
+                             gpk.fused_obs_loglik_plain,
+                             (post.X, xb, post.Ay, post.Ky_inv, inv_ls_y, zb, lam2),
+                             (post.X, xb, Ay_cond, Ky_cond, inv_ls_y, zb, lam2),
+                             peaks, obs_work(Ny, nb * pb, d, D, n_z=nb))),
+        )
+        for i, entry in banked:
+            entry["shape"] = [nb, pb]
+            kernels[i]["banked"].append(entry)
+    rank_shapes = [check_rank(rs, frame_s[(nb, pb)], dirichlet_counts(nb, pb, nb + pb, dev),
+                              peaks) for nb, pb in RANK_SHAPES]
+    kernels.append({"name": "resample_rank", "route": "cuda", "source": RANK_CSRC,
+                    "replaces": REPLACES["resample_rank"], "launches": 0,
+                    **{k: v for k, v in rank_shapes[0].items() if k not in ("shape", "errors")},
+                    "shapes": rank_shapes})
     emit({"phase": "kernels", "shapes": {"P": P, "d": d, "D": D, "Ny": Ny, "n_max": n_max,
                                          "C": C},
           "kernels": kernels})
+
+    def reset_launches():
+        gpk.reset_launches()
+        rs.reset_launches()
+
+    def check_launches(label, frames):
+        """The counters against ``frames`` frames of C K1 launches, one of
+        K2 and one of K3, whatever the number of banks."""
+        got = {**gpk.LAUNCHES, **rs.LAUNCHES}
+        want = {"fused_x_posterior": frames * C, "fused_rbf_posterior": 0,
+                "fused_obs_loglik": frames, "resample_rank": frames}
+        if got != want:
+            raise AssertionError(f"{label}: launch counts {got}, expected {want}")
+        return got
 
     _phase[0] = "path"
 
@@ -289,13 +429,9 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t, o
 
-    gpk.reset_launches()
+    reset_launches()
     wall, outs = run_path(pfc)
-    launches = dict(gpk.LAUNCHES)
-    expected = {"fused_x_posterior": N_FRAMES * C, "fused_obs_loglik": N_FRAMES,
-                "fused_rbf_posterior": 0}
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    launches = check_launches("path", N_FRAMES)
     probs = outs.class_probs
     if probs.shape != (N_FRAMES, C) or not torch.isfinite(probs).all():
         raise AssertionError("class_probs not finite or of the wrong shape")
@@ -311,12 +447,27 @@ def main(argv) -> int:
     emit({"phase": "path", "particles": N_PARTICLES, "frames": N_FRAMES,
           "launches": launches, "fps": N_FRAMES / best, "ms_per_frame": 1e3 * best / N_FRAMES,
           "walls_s": walls, "plain_path_fps": N_FRAMES / plain_wall,
-          "kernel_ms_per_frame": C * kernels[0]["ms"] + kernels[2]["ms"],
+          "kernel_ms_per_frame": C * kernels[0]["ms"] + kernels[2]["ms"] + kernels[3]["ms"],
           "device": kind, "nvidia_smi": smi})
 
     if "--profile" in argv:
         _phase[0] = "profile"
-        emit(profile(pf, post, params, log_T, cfg, pfc, model, Z, dev))
+
+        def window(nb, pb, frames):
+            """A steady window of ``frames`` frames of nb banks of pb particles."""
+            cfg_b = PFConfig(num_particles=pb, pallas="on")
+            g = torch.Generator(device=dev).manual_seed(0)
+            st = pf.pf_init_bank(post, offsets, g, cfg_b, nb)
+            Zb = Z[None, :5 + frames].expand(nb, 5 + frames, D)
+            st, _ = pf.pf_scan_bank(st, Zb[:, :5], post, params, log_T, cfg, cfg_b, generator=g)
+            return lambda: pf.pf_scan_bank(st, Zb[:, 5:], post, params, log_T, cfg, cfg_b,
+                                           generator=g)
+
+        for label, nb, pb, frames in (("path", 1, N_PARTICLES, 50),
+                                      ("banked_guard", 12, N_PARTICLES, 20),
+                                      ("fleet", FLEET_BANKS, FLEET_PARTICLES, 20)):
+            emit({"phase": "profile", "path": label, "banks": nb, "particles": pb,
+                  **profile(window(nb, pb, frames), frames)})
 
     _phase[0] = "guard"
     _, _, q_seqs, q_labels = synthetic.make_dataset(
@@ -330,9 +481,60 @@ def main(argv) -> int:
     if not acc >= GUARD_MIN_FRAME_ACC:
         raise AssertionError(f"guard frame accuracy {acc} < {GUARD_MIN_FRAME_ACC}")
 
+    _phase[0] = "banked_guard"
+    T_pad = pf.bucket_length(max(len(q) for q in q_seqs))
+    reset_launches()
+    rep = evaluate_pf_banked(model, TRANSITIONS, q_seqs, q_labels, num_particles=N_PARTICLES,
+                             burn_in=5, seed=0, config=pfc)
+    banked_launches = check_launches("banked_guard", T_pad)
+    acc = rep.frame_metrics["accuracy"]
+    emit({"phase": "banked_guard", "frame_acc": acc, "frame_f1": rep.frame_metrics["f1"],
+          "trial_acc": rep.trial_metrics["accuracy"], "frames": rep.total_frames,
+          "banks": len(q_seqs), "particles_per_bank": N_PARTICLES, "padded_frames": T_pad,
+          "wall_s": rep.total_wall_s, "agg_fps": rep.fps,
+          "padded_agg_fps": len(q_seqs) * T_pad / rep.total_wall_s,
+          "launches": banked_launches, "min_frame_acc": GUARD_MIN_FRAME_ACC})
+    if not acc >= GUARD_MIN_FRAME_ACC:
+        raise AssertionError(f"banked guard frame accuracy {acc} < {GUARD_MIN_FRAME_ACC}")
+
+    _phase[0] = "fleet"
+    Zf = Z[None, :FLEET_FRAMES].expand(FLEET_BANKS, FLEET_FRAMES, D)
+
+    def run_fleet(config):
+        g = torch.Generator(device=dev).manual_seed(1)
+        s0 = pf.pf_init_bank(post, offsets, g, config, FLEET_BANKS)
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, o = pf.pf_scan_bank(s0, Zf, post, params, log_T, cfg, config, generator=g)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, o
+
+    fleet_cfg = PFConfig(num_particles=FLEET_PARTICLES, pallas="on")
+    fleet_walls = []
+    for _ in range(TIMED_RUNS):
+        wall, outs = run_fleet(fleet_cfg)
+        fleet_launches = check_launches("fleet", FLEET_FRAMES)
+        fleet_walls.append(wall)
+    probs = outs.class_probs
+    if probs.shape != (FLEET_BANKS, FLEET_FRAMES, C) or not torch.isfinite(probs).all():
+        raise AssertionError("fleet class_probs not finite or of the wrong shape")
+    fleet_plain_wall = run_fleet(dataclasses.replace(fleet_cfg, pallas="off"))[0]
+    emit({"phase": "fleet", "banks": FLEET_BANKS, "particles_per_bank": FLEET_PARTICLES,
+          "frames": FLEET_FRAMES, "launches": fleet_launches,
+          "agg_fps": FLEET_BANKS * FLEET_FRAMES / min(fleet_walls), "walls_s": fleet_walls,
+          "plain_agg_fps": FLEET_BANKS * FLEET_FRAMES / fleet_plain_wall,
+          "device": kind, "nvidia_smi": smi})
+    for k in kernels:
+        k["launches_by_phase"] = {"path": launches[k["name"]],
+                                  "banked_guard": banked_launches[k["name"]],
+                                  "fleet": fleet_launches[k["name"]]}
+
     _phase[0] = "report"
-    emit({"kernels": [{k: v for k, v in kern.items()
-                       if k not in ("path_inputs", "conditioned_inputs")}
+    heavy = ("path_inputs", "conditioned_inputs")
+    emit({"kernels": [{k: ([{kk: vv for kk, vv in e.items() if kk not in heavy} for e in v]
+                           if k == "banked" else v)
+                       for k, v in kern.items() if k not in heavy}
                       for kern in kernels]})
     print(f"{smi} (total {time.perf_counter() - t_start:.1f} s)", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -340,18 +542,17 @@ def main(argv) -> int:
     return 0
 
 
-def profile(pf, post, params, log_T, cfg, pfc, model, Z, dev, frames: int = 50):
-    """Device time by kernel name over a short steady window of the path."""
+def profile(run, frames: int):
+    """Device time by kernel name over ``run()``, a steady window of
+    ``frames`` frames, run once before to warm up."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    g = torch.Generator(device=dev).manual_seed(0)
-    s = pf.pf_init(post, model.layout.y_class_offsets, g, pfc)
-    s, _ = pf.pf_scan(s, Z[:5], post, params, log_T, cfg, pfc, generator=g)
+    run()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pf.pf_scan(s, Z[:frames], post, params, log_T, cfg, pfc, generator=g)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     rows = []
@@ -363,7 +564,7 @@ def profile(pf, post, params, log_T, cfg, pfc, model, Z, dev, frames: int = 50):
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    return {"phase": "profile", "frames": frames, "wall_ms_per_frame": 1e3 * wall / frames,
+    return {"frames": frames, "wall_ms_per_frame": 1e3 * wall / frames,
             "device_busy_ms_per_frame": busy_us / 1e3 / frames,
             "device_busy_share": (busy_us / 1e6) / wall if wall > 0 else None,
             "top": [{"name": k[:80], "device_ms_per_frame": us / 1e3 / frames,

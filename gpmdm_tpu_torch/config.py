@@ -135,9 +135,15 @@ class PFConfig:
     tensors on the CPU.  'off' runs the plain PyTorch versions on any
     device.
 
-    quad_precision, recon_precision, fuse_mean_quad and bank_impl tune
-    JAX-package paths that this port does not have yet; they are validated
-    and carried so that configurations round-trip.
+    bank_impl: 'auto' | 'vmap' | 'flat', validated and carried.  The port
+    has one bank formulation whatever it says: flat, the GP stages over
+    all banks' particles at once with the bank-aware observation kernel
+    (one observation per bank).  It computes what the JAX package's vmap
+    path computes.
+
+    quad_precision, recon_precision and fuse_mean_quad tune JAX-package
+    paths that this port does not have yet; they are validated and carried
+    so that configurations round-trip.
     """
 
     num_particles: int = 100

@@ -1,14 +1,21 @@
 """Switching-state particle filter over a trained exact GPMDM.
 
 Counterpart of ``gpmdm_tpu/filter/particle_filter.py`` on its fused-kernel
-path (``PFConfig(pallas='on')``).  Each frame runs:
+path (``PFConfig(pallas='on')``), for one filter (``pf_init``, ``pf_step``,
+``pf_scan``, ``GPMDM_PF``) or a bank of B independent filters in one call
+(``pf_init_bank``, ``pf_step_bank``, ``pf_scan_bank``,
+``pf_scan_bank_masked``).  One filter is a bank of one.  Each frame runs:
 
 1. Markov class transition, by inverse CDF: one uniform per particle;
 2. the per-class dynamics posterior (``fused_x_posterior``, one launch per
-   class) and a draw from the selected class's predictive Gaussian;
-3. observation weighting (``fused_obs_loglik``, one launch);
-4. weight normalisation and the readouts, taken BEFORE resampling;
-5. systematic (or multinomial) resampling.
+   class over every bank's particles) and a draw from the selected
+   class's predictive Gaussian;
+3. observation weighting (``fused_obs_loglik``, one launch, one
+   observation per bank);
+4. weight normalisation and the readouts per bank, taken BEFORE
+   resampling;
+5. systematic resampling (its rank from ``ops.resample.resample_rank``,
+   one launch over all banks) or multinomial resampling.
 
 Randomness comes from an explicit ``torch.Generator`` on the state's
 device, or is injected per frame as ``PFNoise`` (the parity tests feed the
@@ -29,13 +36,16 @@ from ..config import GPMDMConfig, PFConfig
 from ..models import core
 from ..ops import gp_posterior as gpk
 from ..ops import kernels as K
+from ..ops import resample as rs
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
 @dataclasses.dataclass
 class PFState:
-    """Particle filter state; ``x_prev`` carries x(t-1) for back_step=2."""
+    """Particle filter state; ``x_prev`` carries x(t-1) for back_step=2.
+    A bank of B filters (``pf_init_bank``) puts a leading bank axis on
+    every field: x and x_prev (B, Pb, d), the others (B, Pb)."""
 
     x: torch.Tensor  # (P, d) latent states
     x_prev: torch.Tensor  # (P, d) previous latent states
@@ -46,7 +56,8 @@ class PFState:
 
 @dataclasses.dataclass
 class PFOutputs:
-    """Per-step readouts (stacked on a leading frame axis by ``pf_scan``)."""
+    """Per-step readouts (a bank adds a leading bank axis; ``pf_scan``
+    stacks frames on a leading axis, ``pf_scan_bank`` after the bank's)."""
 
     class_probs: torch.Tensor  # (C,) posterior class probabilities
     log_likelihood: torch.Tensor  # () max-shifted weighted likelihood sum
@@ -56,21 +67,34 @@ class PFOutputs:
 
 @dataclasses.dataclass
 class PFNoise:
-    """One frame's randomness (a leading frame axis when given to
-    ``pf_scan``): transition uniforms, dynamics normals and the systematic
-    resampling uniform.  Multinomial resampling draws from the generator."""
+    """One frame's randomness (a leading frame axis when given to a scan):
+    transition uniforms, dynamics normals and the systematic resampling
+    uniform; a bank adds a bank axis after the frame's.  Multinomial
+    resampling draws from the generator."""
 
-    u_trans: torch.Tensor  # (P,)
-    eps_dyn: torch.Tensor  # (P, d)
-    u_res: torch.Tensor  # ()
+    u_trans: torch.Tensor  # (P,) or (B, Pb)
+    eps_dyn: torch.Tensor  # (P, d) or (B, Pb, d)
+    u_res: torch.Tensor  # () or (B,)
 
 
-def draw_noise(P: int, d: int, generator: torch.Generator, dtype, device) -> PFNoise:
-    """One frame of filter randomness from ``generator``."""
+def _map(obj, fn):
+    """The same dataclass with ``fn`` applied to every field."""
+    return type(obj)(**{f.name: fn(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+
+
+def _stack(outs: list, dim: int) -> PFOutputs:
+    return PFOutputs(**{f.name: torch.stack([getattr(o, f.name) for o in outs], dim=dim)
+                        for f in dataclasses.fields(PFOutputs)})
+
+
+def draw_noise(B: int, Pb: int, d: int, generator: torch.Generator, dtype,
+               device) -> PFNoise:
+    """One frame of randomness from ``generator`` for B filters of Pb
+    particles each."""
     return PFNoise(
-        u_trans=torch.rand(P, generator=generator, dtype=dtype, device=device),
-        eps_dyn=torch.randn(P, d, generator=generator, dtype=dtype, device=device),
-        u_res=torch.rand((), generator=generator, dtype=dtype, device=device),
+        u_trans=torch.rand(B, Pb, generator=generator, dtype=dtype, device=device),
+        eps_dyn=torch.randn(B, Pb, d, generator=generator, dtype=dtype, device=device),
+        u_res=torch.rand(B, generator=generator, dtype=dtype, device=device),
     )
 
 
@@ -82,26 +106,44 @@ def _init_classes(num_particles: int, n_classes: int) -> np.ndarray:
     return np.repeat(np.arange(n_classes, dtype=np.int64), counts)
 
 
-def pf_init(post: core.Posterior, y_class_offsets: np.ndarray,
-            generator: torch.Generator, pf_cfg: PFConfig) -> PFState:
-    """Particles sampled (with replacement) from each class's training latents."""
-    P = pf_cfg.num_particles
+def pf_init_bank(post: core.Posterior, y_class_offsets: np.ndarray,
+                 generator: torch.Generator, pf_cfg: PFConfig,
+                 n_banks: int) -> PFState:
+    """A bank of ``n_banks`` independent filters of ``num_particles`` each,
+    every particle sampled (with replacement) from its class's training
+    latents; each bank from its own draws."""
+    Pb = pf_cfg.num_particles
     C = len(y_class_offsets) - 1
     dev = post.X.device
-    classes = torch.as_tensor(_init_classes(P, C), device=dev)
+    classes = torch.as_tensor(_init_classes(Pb, C), device=dev).repeat(n_banks, 1)
     offsets = torch.as_tensor(np.asarray(y_class_offsets, dtype=np.int64), device=dev)
     lo = offsets[:-1][classes]
     count = (offsets[1:] - offsets[:-1])[classes]
-    u = torch.rand(P, generator=generator, device=dev)
+    u = torch.rand(n_banks, Pb, generator=generator, device=dev)
     idx = lo + torch.floor(u * count).to(torch.int64)
     x = post.X[idx]
     return PFState(
         x=x,
         x_prev=x,
         c=classes,
-        log_w=torch.full((P,), -math.log(P), dtype=x.dtype, device=dev),
-        log_lik=torch.zeros(P, dtype=x.dtype, device=dev),
+        log_w=torch.full((n_banks, Pb), -math.log(Pb), dtype=x.dtype, device=dev),
+        log_lik=torch.zeros(n_banks, Pb, dtype=x.dtype, device=dev),
     )
+
+
+def pf_init(post: core.Posterior, y_class_offsets: np.ndarray,
+            generator: torch.Generator, pf_cfg: PFConfig) -> PFState:
+    """One filter: particles sampled (with replacement) from each class's
+    training latents."""
+    return _map(pf_init_bank(post, y_class_offsets, generator, pf_cfg, 1), lambda a: a[0])
+
+
+def bucket_length(T: int, min_bucket: int = 64) -> int:
+    """Smallest power-of-two bucket >= T (>= min_bucket)."""
+    b = min_bucket
+    while b < T:
+        b *= 2
+    return b
 
 
 def _select_by_class(per_class: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -120,61 +162,78 @@ def observation_log_lik(z, mean, var, D: int, compat_double_logdet: bool):
     return -0.5 * quad - logdet_coeff * logdet - 0.5 * D * _LOG_2PI
 
 
-def systematic_resample_indices(u: torch.Tensor, log_w: torch.Tensor,
-                                w: torch.Tensor | None = None) -> torch.Tensor:
-    """Systematic resampling with one uniform ``u``.
-
-    ``s_j = clip(floor(P cum_j - u) + 1, 0, P)`` counts the positions
-    ``(u + i) / P`` strictly below ``cum_j``, and ``idx_i = #{j : s_j <= i}``
-    — the rank the JAX package computes with a 0/1 matmul on the TPU,
-    here a binary search over the nondecreasing ``s``.  Weights are taken
-    in at least fp32 (``w``, the readout stage's normalised weights, when
-    given)."""
-    P = log_w.shape[0]
+def systematic_counts(u: torch.Tensor, log_w: torch.Tensor,
+                      w: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, Pb) int32 ``s_j = clip(floor(Pb cum_j - u) + 1, 0, Pb)``: how many
+    of the positions ``(u + i) / Pb`` lie strictly below ``cum_j``, for
+    ``log_w`` (P,) with ``u`` () (B = 1) or (B, Pb) with ``u`` (B,).
+    Weights are taken in at least fp32 (``w``, the readout stage's
+    normalised weights, when given)."""
+    P = log_w.shape[-1]
     ct = torch.promote_types(log_w.dtype, torch.float32)
-    w = torch.softmax(log_w.to(ct), dim=0) if w is None else w.to(ct)
-    cum = torch.cumsum(w, dim=0)
-    s = torch.clamp(torch.floor(P * cum - u.to(ct)).to(torch.int64) + 1, 0, P)
-    ranks = torch.arange(P, device=log_w.device, dtype=torch.int64)
-    idx = torch.searchsorted(s, ranks, right=True)
-    return torch.clamp(idx, 0, P - 1)
+    w = torch.softmax(log_w.to(ct), dim=-1) if w is None else w.to(ct)
+    cum = torch.cumsum(w, dim=-1)
+    s = torch.floor(P * cum - u.to(ct)[..., None]).to(torch.int64) + 1
+    return torch.clamp(s, 0, P).to(torch.int32).reshape(-1, P)
+
+
+def systematic_resample_indices(u: torch.Tensor, log_w: torch.Tensor,
+                                w: torch.Tensor | None = None,
+                                rank=rs.resample_rank) -> torch.Tensor:
+    """Systematic resampling, for one filter (``log_w`` (P,), ``u`` ()) or
+    a bank (``log_w`` (B, Pb), ``u`` (B,)): indices into each filter's own
+    particles, ``idx_i = #{j : s_j <= i}`` with ``s`` from
+    ``systematic_counts``.  That is the rank that the JAX package
+    computes with a 0/1 matmul on the TPU; here ``rank`` counts it: the
+    kernel K3 (``ops.resample.resample_rank``, its plain version for
+    tensors on the CPU) or ``resample_rank_plain``."""
+    return rank(systematic_counts(u, log_w, w)).reshape(log_w.shape)
 
 
 def multinomial_resample_indices(generator: torch.Generator,
                                  log_w: torch.Tensor) -> torch.Tensor:
-    """Multinomial resampling (reference parity): P draws from softmax(log_w)."""
-    P = log_w.shape[0]
-    w = torch.softmax(log_w.to(torch.promote_types(log_w.dtype, torch.float32)), dim=0)
+    """Multinomial resampling (reference parity): P draws from
+    softmax(log_w) for each filter, ``log_w`` (P,) or (B, P)."""
+    P = log_w.shape[-1]
+    w = torch.softmax(log_w.to(torch.promote_types(log_w.dtype, torch.float32)), dim=-1)
     return torch.multinomial(w, P, replacement=True, generator=generator)
 
 
-def _posterior_fns(pf_cfg: PFConfig):
+def _kernel_fns(pf_cfg: PFConfig):
+    """K1, K2 and K3, or their plain versions under ``pallas='off'``."""
     if pf_cfg.pallas == "off":
-        return gpk.fused_x_posterior_plain, gpk.fused_obs_loglik_plain
-    return gpk.fused_x_posterior, gpk.fused_obs_loglik
+        return gpk.fused_x_posterior_plain, gpk.fused_obs_loglik_plain, rs.resample_rank_plain
+    return gpk.fused_x_posterior, gpk.fused_obs_loglik, rs.resample_rank
 
 
-def pf_step(state: PFState, z: torch.Tensor, post: core.Posterior,
-            params: core.GPMDMParams, log_T: torch.Tensor, cfg: GPMDMConfig,
-            pf_cfg: PFConfig, noise: PFNoise | None = None,
-            generator: torch.Generator | None = None) -> tuple[PFState, PFOutputs]:
-    """One full filter update: (state, observation) -> (new state, readouts).
+def pf_step_bank(states: PFState, z: torch.Tensor, post: core.Posterior,
+                 params: core.GPMDMParams, log_T: torch.Tensor, cfg: GPMDMConfig,
+                 pf_cfg: PFConfig, noise: PFNoise | None = None,
+                 generator: torch.Generator | None = None) -> tuple[PFState, PFOutputs]:
+    """One update of B independent filters: (states, observations (B, D))
+    -> (new states, readouts with a leading bank axis).
 
-    ``noise`` supplies this frame's randomness; without it the step draws
-    from ``generator``.  Multinomial resampling always needs ``generator``.
+    Counterpart of the JAX package's flat-bank step: the GP stages run on
+    the flat (B * Pb, d) particle set as one filter would (C launches of
+    K1, one of K2 with one observation per bank), and only the O(P) glue is
+    bank-blocked: weight normalisation, readouts, the ESS select, the rank
+    K3 over (B, Pb) and one flat offset gather.  ``noise`` supplies this
+    frame's randomness; without it the step draws from ``generator``.
+    Multinomial resampling always needs ``generator``.
     """
-    P, d = state.x.shape
+    B, Pb, d = states.x.shape
+    P = B * Pb
     if noise is None:
         if generator is None:
             raise ValueError("pf_step needs injected noise or a generator")
-        noise = draw_noise(P, d, generator, state.x.dtype, state.x.device)
-    x_posterior, obs_loglik = _posterior_fns(pf_cfg)
+        noise = draw_noise(B, Pb, d, generator, states.x.dtype, states.x.device)
+    x_posterior, obs_loglik, rank = _kernel_fns(pf_cfg)
 
     # 1. Markov class transition by inverse CDF against the particle's row.
     C = log_T.shape[0]
     cum_T = torch.cumsum(torch.exp(log_T), dim=1)  # (C, C), rows end at 1
-    row_cum = cum_T[state.c]  # (P, C)
-    u_trans = noise.u_trans.to(cum_T.dtype)
+    row_cum = cum_T[states.c.reshape(P)]  # (P, C)
+    u_trans = noise.u_trans.reshape(P).to(cum_T.dtype)
     c = torch.sum(u_trans[:, None] >= row_cum, dim=1)
     c = torch.clamp(c, max=C - 1)
 
@@ -182,7 +241,9 @@ def pf_step(state: PFState, z: torch.Tensor, post: core.Posterior,
     #    class, sample.  n_valid = n_max disables the kernel's row mask: the
     #    precompute's zero padding of Axc / Kxc_inv annihilates the padded
     #    star-kernel rows instead.
-    xin = state.x if cfg.dyn_back_step == 1 else torch.cat([state.x, state.x_prev], dim=1)
+    x_flat = states.x.reshape(P, d)
+    xin = x_flat if cfg.dyn_back_step == 1 else torch.cat(
+        [x_flat, states.x_prev.reshape(P, d)], dim=1)
     xin = xin.contiguous()
     inv_ls = torch.exp(-params.x_log_lengthscales)
     lin_w = torch.exp(params.x_log_lin_coeff)
@@ -201,14 +262,15 @@ def pf_step(state: PFState, z: torch.Tensor, post: core.Posterior,
         v_list.append(var_common[:, None] * lam_x)
     mean = _select_by_class(torch.stack(m_list), c)
     var = torch.clamp(_select_by_class(torch.stack(v_list), c), min=1e-12)
-    prop = mean + torch.sqrt(var) * noise.eps_dyn.to(mean.dtype)
-    x_new = state.x + prop if cfg.dyn_target == "delta" else prop
+    prop = mean + torch.sqrt(var) * noise.eps_dyn.reshape(P, d).to(mean.dtype)
+    x_new = x_flat + prop if cfg.dyn_target == "delta" else prop
 
     # 3. Observation weighting: the fused kernel returns the variance quad
-    #    and the weighted residual; the log-pdf is elementwise from there.
+    #    and the weighted residual against each particle's own bank's
+    #    observation; the log-pdf is elementwise from there.
     quad, qres = obs_loglik(
         post.X, x_new.contiguous(), post.Ay, post.Ky_inv,
-        torch.exp(-params.y_log_lengthscales), z,
+        torch.exp(-params.y_log_lengthscales), z.contiguous(),
         torch.exp(2.0 * params.y_log_lambdas),
     )
     diag = K.y_diag_kernel(
@@ -220,52 +282,72 @@ def pf_step(state: PFState, z: torch.Tensor, post: core.Posterior,
     log_lik = -0.5 * qres / var_c - coeff * logdet - 0.5 * cfg.D * _LOG_2PI
     # dead-particle guard: a diverged particle gets likelihood zero
     neg_inf = torch.tensor(-math.inf, dtype=log_lik.dtype, device=log_lik.device)
-    log_lik = torch.where(torch.isfinite(log_lik), log_lik, neg_inf)
-    log_w = log_lik + state.log_w if pf_cfg.accumulate_weights else log_lik
-    lse = torch.logsumexp(log_w, dim=0)
+    log_lik = torch.where(torch.isfinite(log_lik), log_lik, neg_inf).reshape(B, Pb)
+    log_w = log_lik + states.log_w if pf_cfg.accumulate_weights else log_lik
+    lse = torch.logsumexp(log_w, dim=1, keepdim=True)
     # all-dead fallback: uniform weights instead of NaN
     log_w = torch.where(torch.isfinite(lse), log_w - lse,
-                        torch.full_like(log_w, -math.log(P)))
+                        torch.full_like(log_w, -math.log(Pb)))
 
-    # 4. Readouts before resampling.
+    # 4. Readouts before resampling, per bank.
     w = torch.exp(log_w)
     lw = log_lik + log_w
-    lw_max = torch.max(lw)
+    lw_max = torch.amax(lw, dim=1, keepdim=True)
     lw = torch.where(torch.isfinite(lw_max), lw - lw_max, torch.zeros_like(lw))
-    onehot = torch.nn.functional.one_hot(c, C).to(w.dtype)  # (P, C)
-    class_scores = torch.exp(lw) @ onehot
-    class_probs = class_scores / torch.sum(class_scores)
+    elw = torch.exp(lw)
+    onehot = torch.nn.functional.one_hot(c, C).to(w.dtype).reshape(B, Pb, C)
+    class_scores = torch.bmm(elw[:, None, :], onehot)[:, 0]  # (B, C)
+    class_probs = class_scores / torch.sum(class_scores, dim=1, keepdim=True)
     x_safe = torch.where(torch.isfinite(x_new), x_new, torch.zeros_like(x_new))
     outputs = PFOutputs(
         class_probs=class_probs,
-        log_likelihood=torch.sum(torch.exp(lw)),
-        state_mean=torch.sum(x_safe * w[:, None], dim=0),
-        most_likely_class=torch.argmax(class_probs),
+        log_likelihood=torch.sum(elw, dim=1),
+        state_mean=torch.sum(x_safe.reshape(B, Pb, d) * w[:, :, None], dim=1),
+        most_likely_class=torch.argmax(class_probs, dim=1),
     )
 
-    # 5. Resampling: x, x_prev and c gathered through one packed array.
-    packed = torch.cat([x_new, state.x, c.to(x_new.dtype)[:, None]], dim=1)
+    # 5. Resampling: per-bank indices, then x, x_prev and c gathered
+    #    through one packed array by one flat offset gather.
+    packed = torch.cat([x_new, x_flat, c.to(x_new.dtype)[:, None]], dim=1)
     if pf_cfg.resampling == "systematic":
-        idx = systematic_resample_indices(noise.u_res, log_w, w=w)
+        idx = systematic_resample_indices(noise.u_res, log_w, w=w, rank=rank)
     else:
         if generator is None:
             raise ValueError("multinomial resampling needs a generator")
         idx = multinomial_resample_indices(generator, log_w)
-    packed_r = packed[idx]
-    new_log_w = torch.full_like(log_w, -math.log(P))
+    offsets = Pb * torch.arange(B, device=idx.device, dtype=idx.dtype)
+    packed_r = packed[(idx + offsets[:, None]).reshape(P)]
+    new_log_w = torch.full_like(log_w, -math.log(Pb))
     if pf_cfg.resample_threshold < 1.0:
-        ess = 1.0 / torch.clamp(torch.sum(w * w), min=1e-38)
-        do = ess < pf_cfg.resample_threshold * P
-        packed_r = torch.where(do, packed_r, packed)
-        new_log_w = torch.where(do, new_log_w, log_w)
-    new_state = PFState(
-        x=packed_r[:, :d],
-        x_prev=packed_r[:, d:2 * d],
-        c=packed_r[:, 2 * d].to(torch.int64),
+        ess = 1.0 / torch.clamp(torch.sum(w * w, dim=1), min=1e-38)  # (B,)
+        do = ess < pf_cfg.resample_threshold * Pb
+        packed_r = torch.where(do[:, None].expand(B, Pb).reshape(P, 1), packed_r, packed)
+        new_log_w = torch.where(do[:, None], new_log_w, log_w)
+    new_states = PFState(
+        x=packed_r[:, :d].reshape(B, Pb, d),
+        x_prev=packed_r[:, d:2 * d].reshape(B, Pb, d),
+        c=packed_r[:, 2 * d].to(torch.int64).reshape(B, Pb),
         log_w=new_log_w,
         log_lik=log_lik,
     )
-    return new_state, outputs
+    return new_states, outputs
+
+
+def pf_step(state: PFState, z: torch.Tensor, post: core.Posterior,
+            params: core.GPMDMParams, log_T: torch.Tensor, cfg: GPMDMConfig,
+            pf_cfg: PFConfig, noise: PFNoise | None = None,
+            generator: torch.Generator | None = None) -> tuple[PFState, PFOutputs]:
+    """One full filter update: (state, observation (D,)) -> (new state,
+    readouts); a bank of one filter.
+
+    ``noise`` supplies this frame's randomness; without it the step draws
+    from ``generator``.  Multinomial resampling always needs ``generator``.
+    """
+    new, out = pf_step_bank(
+        _map(state, lambda a: a[None]), z[None], post, params, log_T, cfg, pf_cfg,
+        noise=None if noise is None else _map(noise, lambda a: a[None]),
+        generator=generator)
+    return _map(new, lambda a: a[0]), _map(out, lambda a: a[0])
 
 
 def pf_scan(state: PFState, Z: torch.Tensor, post: core.Posterior,
@@ -275,19 +357,50 @@ def pf_scan(state: PFState, Z: torch.Tensor, post: core.Posterior,
     """Stream a (T, D) observation sequence through the filter, frame by
     frame; returns the final state and the readouts stacked over frames.
     ``noise`` (leading frame axis) injects every frame's randomness;
-    otherwise each frame draws from ``generator``."""
+    otherwise each frame draws from ``generator``.  A bank of one."""
+    new, outs = pf_scan_bank_masked(
+        _map(state, lambda a: a[None]), Z[None], None, post, params, log_T, cfg, pf_cfg,
+        generator=generator,
+        noise=None if noise is None else _map(noise, lambda a: a.unsqueeze(1)))
+    return _map(new, lambda a: a[0]), _map(outs, lambda a: a[0])
+
+
+def pf_scan_bank_masked(states: PFState, Z: torch.Tensor, valid: torch.Tensor | None,
+                        post: core.Posterior, params: core.GPMDMParams,
+                        log_T: torch.Tensor, cfg: GPMDMConfig, pf_cfg: PFConfig,
+                        generator: torch.Generator | None = None,
+                        noise: PFNoise | None = None) -> tuple[PFState, PFOutputs]:
+    """B independent filters over B padded sequences: ``Z`` (B, T, D),
+    ``valid`` (B, T) bool on the states' device.  On a frame where
+    ``valid[b, t]`` is False, bank b's state passes through unchanged (its
+    readouts for that frame are computed and meaningless); the kernels
+    still run over every bank, so launch counts do not depend on the mask.
+    Returns the final states and readouts of shape (B, T, ...).
+    ``noise`` (leading frame axis, then bank) injects every frame's
+    randomness; otherwise each frame draws from ``generator``."""
     outs = []
-    for t in range(Z.shape[0]):
-        nz = None if noise is None else PFNoise(
-            noise.u_trans[t], noise.eps_dyn[t], noise.u_res[t])
-        state, out = pf_step(state, Z[t], post, params, log_T, cfg, pf_cfg,
-                             noise=nz, generator=generator)
+    for t in range(Z.shape[1]):
+        nz = None if noise is None else _map(noise, lambda a: a[t])
+        new, out = pf_step_bank(states, Z[:, t], post, params, log_T, cfg, pf_cfg,
+                                noise=nz, generator=generator)
+        if valid is not None:
+            v = valid[:, t]
+            keep = lambda a, b: torch.where(v.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+            new = PFState(**{f.name: keep(getattr(new, f.name), getattr(states, f.name))
+                             for f in dataclasses.fields(PFState)})
+        states = new
         outs.append(out)
-    stacked = PFOutputs(**{
-        f.name: torch.stack([getattr(o, f.name) for o in outs])
-        for f in dataclasses.fields(PFOutputs)
-    })
-    return state, stacked
+    return states, _stack(outs, dim=1)
+
+
+def pf_scan_bank(states: PFState, Z: torch.Tensor, post: core.Posterior,
+                 params: core.GPMDMParams, log_T: torch.Tensor, cfg: GPMDMConfig,
+                 pf_cfg: PFConfig, generator: torch.Generator | None = None,
+                 noise: PFNoise | None = None) -> tuple[PFState, PFOutputs]:
+    """B independent filters over (B, T, D) observations, every frame valid;
+    readouts of shape (B, T, ...)."""
+    return pf_scan_bank_masked(states, Z, None, post, params, log_T, cfg, pf_cfg,
+                               generator=generator, noise=noise)
 
 
 class GPMDM_PF:

@@ -23,7 +23,7 @@ import tempfile
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "gp_posterior.cu",)
+SOURCES = (_CSRC / "gp_posterior.cu", _CSRC / "resample_rank.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
@@ -37,8 +37,10 @@ _I = ctypes.c_int
 # so that ctypes never cuts a 64-bit address to a 32-bit int.
 _SIGNATURES = {
     "gp_posterior_launch": (_I, [_P] * 8 + [_I] * 6 + [_P]),
-    "obs_loglik_launch": (_I, [_P] * 9 + [_I] * 4 + [_P]),
+    "obs_loglik_launch": (_I, [_P] * 9 + [_I] * 5 + [_P]),
     "gp_smem_bytes": (ctypes.c_size_t, [_I] * 5),
+    "resample_rank_launch": (_I, [_P] * 3 + [_I] * 2 + [_P]),
+    "resample_rank_setup": (_I, []),
 }
 
 

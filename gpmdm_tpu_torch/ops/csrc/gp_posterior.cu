@@ -11,6 +11,11 @@
 //   obs_loglik_kernel                      replaces _obs_loglik_kernel behind
 //       fused_obs_loglik: RBF star kernel -> mean (never leaves the chip)
 //       -> qres = sum_j lam2_j (mean_j - z_j)^2 and the variance quad.
+//       Bank-aware: with B banks of Pb = P / B particles, particle p is
+//       weighed against its own bank's row z[p / Pb] (what the JAX
+//       package's jax.vmap of fused_obs_loglik computes); a block's
+//       particle tile may straddle two banks, so the row is chosen per
+//       particle, never per block.
 //
 // Each block owns TP particles and computes, with N training rows,
 //   Kstar[i, p] = exp(-sum_k (xt_ik - xs_pk)^2) [+ sum_k lt_ik ls_pk + bias]
@@ -269,7 +274,7 @@ obs_loglik_kernel(const float* __restrict__ xt, const float* __restrict__ xs,
                   const float* __restrict__ inv_ls, const float* __restrict__ A,
                   const float* __restrict__ kinv, const float* __restrict__ z,
                   const float* __restrict__ lam2, float* __restrict__ quad,
-                  float* __restrict__ qres, int N, int P, int d, int D) {
+                  float* __restrict__ qres, int N, int P, int d, int D, int Pb) {
   using T = Tile<RC>;
   constexpr int TP = T::TP;
   extern __shared__ __align__(16) float smem[];
@@ -286,9 +291,10 @@ obs_loglik_kernel(const float* __restrict__ xt, const float* __restrict__ xs,
   const float q = block_quad<RC>(ks, kit, red, kinv, N);  // syncs after the mean
   const int p = threadIdx.x;
   if (p < TP && p0 + p < P) {
+    const float* zb = z + (size_t)((p0 + p) / Pb) * D;  // this particle's bank
     float r = 0.f;
     for (int j = 0; j < D; ++j) {
-      const float diff = mean_s[p * D + j] - z[j];
+      const float diff = mean_s[p * D + j] - zb[j];
       r += lam2[j] * diff * diff;
     }
     quad[p0 + p] = q;
@@ -338,12 +344,12 @@ template <int RC>
 int launch_obs(const float* xt, const float* xs, const float* inv_ls,
                const float* A, const float* kinv, const float* z,
                const float* lam2, float* quad, float* qres, int N, int P, int d,
-               int D, size_t smem, cudaStream_t stream) {
+               int D, int Pb, size_t smem, cudaStream_t stream) {
   const dim3 grid((P + Tile<RC>::TP - 1) / Tile<RC>::TP);
   const int err = allow_smem(obs_loglik_kernel<RC>, smem);
   if (err != 0) return err;
   obs_loglik_kernel<RC><<<grid, NT, smem, stream>>>(xt, xs, inv_ls, A, kinv, z,
-                                                    lam2, quad, qres, N, P, d, D);
+                                                    lam2, quad, qres, N, P, d, D, Pb);
   return (int)cudaGetLastError();
 }
 
@@ -371,13 +377,13 @@ int gp_posterior_launch(const void* xt, const void* xs, const void* inv_ls,
 int obs_loglik_launch(const void* xt, const void* xs, const void* inv_ls,
                       const void* A, const void* kinv, const void* z,
                       const void* lam2, void* quad, void* qres, int N, int P,
-                      int d, int D, void* stream_ptr) {
+                      int d, int D, int Pb, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const size_t smem = gp_smem_bytes(N, d, D, 0, 1);
   auto go = rows_per_pass(N) == 256 ? launch_obs<256> : launch_obs<512>;
   return go((const float*)xt, (const float*)xs, (const float*)inv_ls,
             (const float*)A, (const float*)kinv, (const float*)z, (const float*)lam2,
-            (float*)quad, (float*)qres, N, P, d, D, smem, stream);
+            (float*)quad, (float*)qres, N, P, d, D, Pb, smem, stream);
 }
 
 }  // extern "C"

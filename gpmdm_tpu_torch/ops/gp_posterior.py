@@ -75,8 +75,9 @@ def fused_x_posterior_plain(Xin_c, Xstar, Axc, Kxc_inv, inv_lengthscales,
 
 def fused_obs_loglik_plain(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2):
     mean, quad = fused_rbf_posterior_plain(Xtrain, Xstar, Ay, Kinv, inv_lengthscales)
-    diff = mean - z[None, :]
-    qres = torch.sum(lam2[None, :] * diff * diff, dim=1)
+    zb = z.reshape(-1, z.shape[-1])  # (B, D): one row per bank
+    diff = mean.reshape(zb.shape[0], -1, zb.shape[1]) - zb[:, None, :]
+    qres = torch.sum(lam2 * diff * diff, dim=2).reshape(-1)
     return quad, qres
 
 
@@ -179,7 +180,10 @@ def fused_obs_loglik(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2):
 
     quad = sum(Kstar * (Kinv Kstar), 0) and
     qres = sum_j lam2_j (mean_j - z_j)^2 with mean = Kstar^T Ay kept on
-    chip.  The caller forms the diagonal-Gaussian log-likelihood from them.
+    chip.  ``z`` is one observation (D,), or one per bank (B, D) for
+    P = B * Pb particles laid out bank after bank: particle p is weighed
+    against ``z[p // Pb]``.  The caller forms the diagonal-Gaussian
+    log-likelihood from them.
     """
     if _on_cpu(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2):
         return fused_obs_loglik_plain(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2)
@@ -188,10 +192,14 @@ def fused_obs_loglik(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2):
     name = "fused_obs_loglik"
     N, d = Xtrain.shape
     P, D = Xstar.shape[0], Ay.shape[1]
+    B = z.shape[0] if z.dim() == 2 else 1
+    if B < 1 or P % B:
+        raise ValueError(f"{name}: {P} particles do not split into {B} banks")
     dev = Xstar.device
     _check(name, dev, Xtrain=(Xtrain, (N, d)), Xstar=(Xstar, (P, d)),
            Ay=(Ay, (N, D)), Kinv=(Kinv, (N, N)),
-           inv_lengthscales=(inv_lengthscales, (d,)), z=(z, (D,)), lam2=(lam2, (D,)))
+           inv_lengthscales=(inv_lengthscales, (d,)),
+           z=(z, (B, D) if z.dim() == 2 else (D,)), lam2=(lam2, (D,)))
     if N < 1:
         raise ValueError(f"{name}: need at least one training row")
     quad = torch.empty(P, dtype=torch.float32, device=dev)
@@ -204,7 +212,7 @@ def fused_obs_loglik(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2):
         rc = lib.obs_loglik_launch(
             Xtrain.data_ptr(), Xstar.data_ptr(), inv_lengthscales.data_ptr(),
             Ay.data_ptr(), Kinv.data_ptr(), z.data_ptr(), lam2.data_ptr(),
-            quad.data_ptr(), qres.data_ptr(), N, P, d, D, stream)
+            quad.data_ptr(), qres.data_ptr(), N, P, d, D, P // B, stream)
     _raise_on_error(name, rc, lambda: lib.gp_smem_bytes(N, d, D, 0, 1))
     LAUNCHES[name] += 1
     return quad, qres

@@ -8,7 +8,8 @@ machine with the card, which has none:
 
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 Tolerance rtol 1e-4, atol 1e-4: both sides run in fp32 and sum in
-different orders over up to 480 terms.
+different orders over up to 480 terms.  The resampling rank counts
+integers, so kernel and plain version must agree exactly.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from gpmdm_tpu_torch.ops import gp_posterior as tgp
+from gpmdm_tpu_torch.ops import resample as rs
 
 D_OUT = 5
 CASES = [(37, 50, 2), (130, 300, 3), (37, 300, 3), (300, 50, 2), (480, 10_000, 2),
@@ -103,3 +105,51 @@ def test_cuda_wrappers_refuse_only_star_tiles_that_do_not_fit(N, fits):
         else:
             with pytest.raises(ValueError, match="shared memory"):
                 call()
+
+
+def _systematic_s(rng, B, Pb, alpha=0.3):
+    """s of systematic resampling from seeded Dirichlet weights."""
+    w = rng.dirichlet(np.full(Pb, alpha), size=B).astype(np.float32)
+    cum = np.cumsum(w, axis=1, dtype=np.float32)
+    u = rng.random((B, 1)).astype(np.float32)
+    return np.clip(np.floor(Pb * cum - u).astype(np.int64) + 1, 0, Pb).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Pb", [(1, 10_000), (12, 10_000), (64, 1000), (1, 100_000)])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_cuda_resample_rank_matches_plain(B, Pb, order):
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(B * Pb)
+    s = _systematic_s(rng, B, Pb)
+    if order == "unsorted":
+        s = rng.permuted(s, axis=1)
+    st = torch.as_tensor(s, device=dev)
+    rs.reset_launches()
+    got = rs.resample_rank(st)
+    want = rs.resample_rank_plain(st)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and got.shape == (B, Pb)
+    assert torch.equal(got, want)
+    assert rs.LAUNCHES == {"resample_rank": 1}
+
+
+@pytest.mark.gpu
+def test_cuda_banked_obs_loglik_matches_plain():
+    dev = _cuda_or_skip()
+    nb, pb = 3, 10_000
+    x = _inputs(480, nb * pb, 2, seed=10)
+    t = {k: _t(v, dev) for k, v in x.items()}
+    z = _t(np.random.default_rng(11).normal(size=(nb, D_OUT)).astype(np.float32), dev)
+    args = [t[k] for k in ("Xt", "Xs", "A", "Kinv", "inv_ls")] + [z, t["lam2"]]
+    got = tgp.fused_obs_loglik(*args)
+    want = tgp.fused_obs_loglik_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    # each bank against its own observation, one bank at a time
+    for b in range(nb):
+        sl = slice(b * pb, (b + 1) * pb)
+        one = tgp.fused_obs_loglik(*args[:1], t["Xs"][sl].contiguous(), *args[2:5], z[b],
+                                   t["lam2"])
+        torch.testing.assert_close(got[1][sl], one[1], rtol=1e-4, atol=1e-4)

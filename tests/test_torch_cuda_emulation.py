@@ -1,15 +1,17 @@
-"""The port's CUDA kernel source, run on the CPU under an emulation of the
-few CUDA features it uses, against a float64 reference.
+"""The port's CUDA kernel sources, run on the CPU under an emulation of the
+few CUDA features they use, against float64 and numpy references.
 
-``gpmdm_tpu_torch/ops/csrc/gp_posterior.cu`` is compiled with g++ against
-stand-ins for the CUDA runtime: one ``std::thread`` per CUDA thread, a
-barrier for ``__syncthreads`` and a static buffer for the dynamic shared
-memory.  That checks the kernels' indexing, masking, tiling and staging
+``gpmdm_tpu_torch/ops/csrc/gp_posterior.cu`` and ``resample_rank.cu`` are
+compiled with g++ against stand-ins for the CUDA runtime: one
+``std::thread`` per CUDA thread, a barrier for ``__syncthreads``, static
+buffers for the dynamic shared memory and ``__atomic_fetch_add`` for
+``atomicAdd``.  That checks the kernels' indexing, masking, tiling and staging
 where there is no card.  It says nothing about speed or about what nvcc
 accepts: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` check the
 kernels on the card.  Skips when no C++20 compiler is present.
 
 Tolerance: 1e-4 relative to (1 + |reference|); the kernels sum in fp32.
+The resampling rank counts integers, so it must equal numpy's exactly.
 """
 
 import re
@@ -17,9 +19,11 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import pytest
 
-SOURCE = Path(__file__).resolve().parents[1] / "gpmdm_tpu_torch" / "ops" / "csrc" / "gp_posterior.cu"
+CSRC = Path(__file__).resolve().parents[1] / "gpmdm_tpu_torch" / "ops" / "csrc"
+SOURCES = {"kernels.cpp": CSRC / "gp_posterior.cu", "rank.cpp": CSRC / "resample_rank.cu"}
 
 STUB = r"""
 #pragma once
@@ -48,6 +52,7 @@ extern std::barrier<>* g_barrier;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
 template <typename T> cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
 using std::min;
 """
 
@@ -63,29 +68,85 @@ thread_local uint3_ threadIdx;
 uint3_ blockIdx;
 std::barrier<>* g_barrier;
 alignas(16) float smem[232448 / 4];
+alignas(16) int rank_smem[232448 / 4];
 #include "kernels.cpp"
+#include "rank.cpp"
 
-template <typename F> void run_blocks(int nblocks, F body) {
+template <typename F> void run_blocks(int nblocks, F body, int nthreads = NT) {
   for (int b = 0; b < nblocks; ++b) {
     blockIdx.x = b;
-    std::barrier<> bar(NT);
+    std::barrier<> bar(nthreads);
     g_barrier = &bar;
     std::vector<std::thread> ts;
-    for (int t = 0; t < NT; ++t) ts.emplace_back([&, t] { threadIdx.x = t; body(); });
+    for (int t = 0; t < nthreads; ++t) ts.emplace_back([&, t] { threadIdx.x = t; body(); });
     for (auto& th : ts) th.join();
   }
+}
+
+template <typename T> std::vector<T> read_file(const char* path, size_t n) {
+  std::vector<T> v(n);
+  FILE* f = fopen(path, "rb");
+  if (!f || fread(v.data(), sizeof(T), n, f) != n) { fprintf(stderr, "short read\n"); exit(2); }
+  fclose(f);
+  return v;
+}
+
+template <typename T> void write_file(const char* path, const std::vector<T>& v) {
+  FILE* f = fopen(path, "wb");
+  fwrite(v.data(), sizeof(T), v.size(), f);
+  fclose(f);
+}
+
+// rank in.bin out.bin B Pb: int32 s (B, Pb) in, int64 idx (B, Pb) out
+int run_rank(char** argv) {
+  const int B = atoi(argv[4]), Pb = atoi(argv[5]);
+  auto s = read_file<int>(argv[2], (size_t)B * Pb);
+  std::vector<long long> idx((size_t)B * Pb, -7);
+  const int on_chip = Pb <= resample_rank_setup();
+  std::vector<int> scratch(on_chip ? 0 : (size_t)B * (Pb + 1), -7);
+  int* counters = on_chip ? nullptr : scratch.data();
+  run_blocks(B, [&] { resample_rank_kernel(s.data(), idx.data(), counters, Pb); }, RANK_NT);
+  write_file(argv[3], idx);
+  printf("on_chip %d\n", on_chip);
+  return 0;
+}
+
+// obs in.bin out.bin N P d D B: xt, xs, inv_ls, A, Kinv, z (B, D), lam2 in
+// (float32, in that order), quad and qres out
+int run_obs_file(char** argv) {
+  const int N = atoi(argv[4]), P = atoi(argv[5]), d = atoi(argv[6]), D = atoi(argv[7]),
+            B = atoi(argv[8]);
+  const size_t sizes[] = {(size_t)N * d, (size_t)P * d, (size_t)d, (size_t)N * D,
+                          (size_t)N * N, (size_t)B * D, (size_t)D};
+  size_t total = 0;
+  for (size_t n : sizes) total += n;
+  auto in = read_file<float>(argv[2], total);
+  const float* ptr[7];
+  size_t off = 0;
+  for (int k = 0; k < 7; ++k) { ptr[k] = in.data() + off; off += sizes[k]; }
+  std::vector<float> quad(P, -7.f), qres(P, -7.f);
+  const int nb = (P + tile_p(N) - 1) / tile_p(N);
+  if (rows_per_pass(N) == 256)
+    run_blocks(nb, [&] { obs_loglik_kernel<256>(ptr[0], ptr[1], ptr[2], ptr[3], ptr[4], ptr[5], ptr[6], quad.data(), qres.data(), N, P, d, D, P / B); });
+  else
+    run_blocks(nb, [&] { obs_loglik_kernel<512>(ptr[0], ptr[1], ptr[2], ptr[3], ptr[4], ptr[5], ptr[6], quad.data(), qres.data(), N, P, d, D, P / B); });
+  quad.insert(quad.end(), qres.begin(), qres.end());
+  write_file(argv[3], quad);
+  return 0;
 }
 
 template <int RC> void launch(bool lin, bool obs, const float* xt, const float* xs,
     const float* ils, const float* lw, const float* A, const float* K, const float* z,
     const float* l2, float* o1, float* o2, int N, int P, int d, int D, int nv) {
   const int nb = (P + Tile<RC>::TP - 1) / Tile<RC>::TP;
-  if (obs) run_blocks(nb, [&] { obs_loglik_kernel<RC>(xt, xs, ils, A, K, z, l2, o1, o2, N, P, d, D); });
+  if (obs) run_blocks(nb, [&] { obs_loglik_kernel<RC>(xt, xs, ils, A, K, z, l2, o1, o2, N, P, d, D, P); });
   else if (lin) run_blocks(nb, [&] { gp_posterior_kernel<RC, true>(xt, xs, ils, lw, A, K, o1, o2, N, P, d, D, nv); });
   else run_blocks(nb, [&] { gp_posterior_kernel<RC, false>(xt, xs, ils, lw, A, K, o1, o2, N, P, d, D, nv); });
 }
 
 int main(int argc, char** argv) {
+  if (std::string(argv[1]) == "rank") return run_rank(argv);
+  if (std::string(argv[1]) == "obs") return run_obs_file(argv);
   if (std::string(argv[1]) == "fits") {  // fits N d Dout has_linear obs
     const int N = atoi(argv[2]), d = atoi(argv[3]), Dout = atoi(argv[4]);
     printf("%d\n", check_smem(gp_smem_bytes(N, d, Dout, atoi(argv[5]), atoi(argv[6]))));
@@ -153,10 +214,10 @@ def emulator(tmp_path_factory):
     if cxx is None:
         pytest.skip("no g++ to compile the CPU emulation")
     work = tmp_path_factory.mktemp("cuda_emulation")
-    src = SOURCE.read_text()
-    src = re.sub(r"<<<[^>]*>>>", "", src)  # launches become plain calls
-    src = src.replace("extern __shared__ __align__(16) float smem[];", "")
-    (work / "kernels.cpp").write_text(src)
+    for name, path in SOURCES.items():
+        src = re.sub(r"<<<[^>]*>>>", "", path.read_text())  # launches become plain calls
+        src = re.sub(r"extern __shared__ __align__\(16\) \w+ \w+\[\];", "", src)
+        (work / name).write_text(src)
     (work / "cuda_runtime.h").write_text(STUB)
     (work / "main.cpp").write_text(HARNESS)
     proc = subprocess.run([cxx, "-std=c++20", "-O1", "-w", "-I", str(work), "main.cpp",
@@ -200,3 +261,73 @@ def test_launchers_refuse_only_star_tiles_that_do_not_fit(emulator, N, d, Dout, 
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout) == (0 if fits else -1)
+
+
+def _run_files(emulator, tmp_path, mode, inputs, out_dtype, args):
+    inp, out = tmp_path / "in.bin", tmp_path / "out.bin"
+    np.concatenate([np.ravel(a) for a in inputs]).tofile(inp)
+    proc = subprocess.run([str(emulator), mode, str(inp), str(out), *map(str, args)],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return np.fromfile(out, dtype=out_dtype), proc.stdout
+
+
+def _rank_numpy(s):
+    """min(#{j : s[b, j] <= i}, Pb - 1) for each bank, by sorting."""
+    B, Pb = s.shape
+    return np.stack([np.minimum(np.searchsorted(np.sort(r), np.arange(Pb), side="right"), Pb - 1)
+                     for r in s])
+
+
+def _systematic_s(rng, B, Pb, alpha):
+    """s of systematic resampling from seeded Dirichlet weights."""
+    w = rng.dirichlet(np.full(Pb, alpha), size=B).astype(np.float32)
+    u = rng.random((B, 1)).astype(np.float32)
+    cum = np.cumsum(w, axis=1, dtype=np.float32)
+    return np.clip(np.floor(Pb * cum - u).astype(np.int64) + 1, 0, Pb).astype(np.int32)
+
+
+@pytest.mark.parametrize("B,Pb,kind", [
+    (3, 50, "sorted"),        # fewer particles than threads
+    (2, 3000, "sorted"),      # several particles per thread
+    (2, 3000, "unsorted"),
+    (3, 50, "extremes"),      # only 0 and Pb, and one long run
+    (1, 60000, "sorted"),     # counters in global scratch, not shared memory
+])
+def test_resample_rank_under_cpu_emulation(emulator, tmp_path, B, Pb, kind):
+    rng = np.random.default_rng(B * 1000 + Pb)
+    s = _systematic_s(rng, B, Pb, alpha=0.3)
+    if kind == "unsorted":
+        s = rng.permuted(s, axis=1)
+    elif kind == "extremes":
+        s = np.where(rng.random((B, Pb)) < 0.5, 0, Pb).astype(np.int32)
+        s[0] = Pb // 2
+    idx, out = _run_files(emulator, tmp_path, "rank", [s], np.int64, (B, Pb))
+    assert ("on_chip 0" in out) == (Pb > 50000)
+    np.testing.assert_array_equal(idx.reshape(B, Pb), _rank_numpy(s))
+
+
+@pytest.mark.parametrize("N,B,Pb,d,D", [
+    (300, 3, 50, 2, 5),    # 32-particle tiles: tiles straddle banks
+    (200, 3, 50, 2, 6),    # 64-particle tiles
+    (37, 4, 25, 2, 5),     # one tile spans several whole banks
+])
+def test_banked_obs_loglik_under_cpu_emulation(emulator, tmp_path, N, B, Pb, d, D):
+    rng = np.random.default_rng(N + B + Pb)
+    f32 = np.float32
+    P = B * Pb
+    xt, xs = rng.normal(size=(N, d)).astype(f32), rng.normal(size=(P, d)).astype(f32)
+    inv_ls = np.exp(0.3 * rng.normal(size=d)).astype(f32)
+    A = rng.normal(size=(N, D)).astype(f32)
+    Kinv = (rng.normal(size=(N, N)) / N).astype(f32)
+    z = rng.normal(size=(B, D)).astype(f32)
+    lam2 = np.exp(rng.normal(size=D)).astype(f32)
+    got, _ = _run_files(emulator, tmp_path, "obs", [xt, xs, inv_ls, A, Kinv, z, lam2],
+                        np.float32, (N, P, d, D, B))
+    a, b = (xt * inv_ls).astype(np.float64), (xs * inv_ls).astype(np.float64)
+    ks = np.exp(-np.sum((a[:, None, :] - b[None, :, :]) ** 2, axis=2))
+    mean = ks.T @ A.astype(np.float64)
+    quad = np.sum(ks * (Kinv.astype(np.float64) @ ks), axis=0)
+    qres = np.sum(lam2 * (mean - np.repeat(z, Pb, axis=0)) ** 2, axis=1)
+    want = np.concatenate([quad, qres])
+    assert np.max(np.abs(got - want) / (1 + np.abs(want))) < 1e-4

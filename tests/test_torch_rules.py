@@ -2,13 +2,15 @@
 
 - No file of gpmdm_tpu_torch/ or chip_smoke.py imports jax or gpmdm_tpu.
 - The kernels are built by nvcc into a hashed, git-ignored directory and
-  bound with ctypes; nothing uses torch.utils.cpp_extension.
+  bound with ctypes; nothing uses torch.utils.cpp_extension.  Every CUDA
+  source is in the one nvcc call, and every launcher has a signature.
 - chip_smoke.py exits non-zero, and prints no result, without a CUDA card
   and in a directory that holds nothing else of the repo.
 """
 
 import ast
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -50,6 +52,20 @@ def test_kernels_are_built_by_nvcc_for_sm_90a_and_bound_with_ctypes():
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     for name, (_, argtypes) in _build._SIGNATURES.items():
         assert all(t in (_build._P, _build._I) for t in argtypes), name
+
+
+@pytest.mark.parametrize("source", sorted((ROOT / "gpmdm_tpu_torch" / "ops" / "csrc").glob("*.cu")),
+                         ids=lambda p: p.name)
+def test_every_cuda_source_is_in_the_one_nvcc_call_with_its_launchers_bound(source):
+    """Each .cu is built by the single nvcc call, and every function of its
+    extern "C" block has a ctypes signature."""
+    assert source in _build.SOURCES
+    text = source.read_text()
+    block = text[text.index('extern "C" {'):]
+    names = re.findall(r"^(?:int|size_t|long long)\s+(\w+)\(", block, flags=re.M)
+    assert names, f"{source.name}: no extern C launcher"
+    for name in names:
+        assert name in _build._SIGNATURES, f"{source.name}: {name} has no ctypes signature"
 
 
 def test_build_without_nvcc_raises_and_leaves_no_file(monkeypatch, tmp_path):
