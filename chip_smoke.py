@@ -26,7 +26,10 @@ Phases, each printing one JSON line on stdout:
                weights A in place of the asset's, where every output's max
                error must be <= 1e-4 x its median magnitude in float64.
              Times: device time of one call on the path's inputs, median of
-             20, from CUDA events.
+             20, from CUDA events; K1 and K2 also at each forced particle
+             tile (tiles_ms), and K2 beside its gemm yardstick (gemm_ms:
+             torch.matmul of the stacked [Kinv; Ay^T] by a precomputed
+             Kstar, TF32 off, which the port never calls).
              K3 resample_rank at (banks, particles) = (1, 10,000),
              (12, 10,000), (64, 1,000) and (1, 100,000), on s from the
              weights of a real frame of the filter and from seeded
@@ -34,6 +37,11 @@ Phases, each printing one JSON line on stdout:
              plain version.  Its library_ms is torch.searchsorted on the
              real frame's s, sorted first (the card's fp32 cumsum can
              leave s a step out of order; the count does not care).
+   large_n - K2 at Ny = 2,048 (bench_model_n2048.npz) and 5,120
+             (bench_model_n5120.npz), and K1 at n5120's 2,528 dynamics rows,
+             each at P = 10,000 on that asset's initial cloud and on
+             conditioned inputs, to the same two limits; the assets are
+             deployed exact.
 4. path    - pf_init + pf_scan, P = 10,000, over the 1000-frame stream of
              bench.py (seed 0); the kernel launch counters must rise by
              exactly 1000 x C (K1), 1000 (K2) and 1000 (K3); frames/s is
@@ -51,6 +59,13 @@ Phases, each printing one JSON line on stdout:
              each bank streaming the path's first 64 frames (bench.py's
              fleet); aggregate frames/s = banks x frames / wall, best of 4
              runs, each of which must launch exactly 64 x (C + 2) kernels.
+8. d4, c8  - bench.py's extra assets, deployed exact: bench_model_d4.npz
+             (d = 4) on the path's stream and the guard's trials, and
+             bench_model_c8.npz (C = 8, D = 10, d = 3, Ny = 960) on its
+             8-class task (bench.py:328-366).  Each runs a 200-frame path at
+             P = 10,000 (launches exactly 200 x C, 200 and 200) and its
+             banked guard (launches exactly T x (C + 2) for T padded
+             frames), whose frame accuracy and F1 are reported, not gated.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -65,7 +80,6 @@ import json
 import os
 import shutil
 import signal
-import statistics
 import subprocess
 import sys
 import time
@@ -75,10 +89,15 @@ N_PARTICLES = 10_000
 N_FRAMES = 1000
 TIMED_RUNS = 4
 FLEET_BANKS, FLEET_PARTICLES, FLEET_FRAMES = 64, 1000, 64
-# (banks, particles per bank) at which K3 is checked: the single filter,
-# the banked guard, the fleet, and the TPU kernel's design point
-RANK_SHAPES = [(1, 10_000), (12, 10_000), (64, 1000), (1, 100_000)]
 GUARD_MIN_FRAME_ACC = 0.90
+# particle tiles of the posterior kernels, each timed beside the launcher's
+# own choice
+TILES = (64, 128)
+# frames of the d4 and c8 assets' paths
+EXTRA_FRAMES = 200
+# the large-N assets, deployed exact (their compressed and sparse caches
+# are ignored): K2 at their Ny, K1 at n5120's dynamics rows
+LARGE_N = (("n2048", "bench_model_n2048.npz", False), ("n5120", "bench_model_n5120.npz", True))
 # a kernel's max error on the well-conditioned inputs, relative to the
 # output's median magnitude in float64
 CONDITIONED_RTOL = 1e-4
@@ -112,26 +131,6 @@ def _run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, timeout=60)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, in ms, from CUDA events around each
-    call.  A spin kernel first keeps the card busy while the host enqueues
-    all the calls, so the events bracket device work, not host overhead."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-    torch.cuda._sleep(50_000_000)
-    for a, b in events:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
-
-
 def bound(flops: float, nbytes: float, peaks) -> tuple[float, str]:
     """Least time (ms) at the card's fp32 peak and memory rate."""
     t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
@@ -160,25 +159,14 @@ def rank_work(B, Pb):
     return 2 * B * Pb, 12 * B * Pb
 
 
-def dirichlet_counts(B, Pb, seed, dev):
-    """s of systematic resampling from seeded Dirichlet(0.3) weights."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(seed)
-    w = rng.dirichlet(np.full(Pb, 0.3), size=B).astype(np.float32)
-    cum = np.cumsum(w, axis=1, dtype=np.float32)
-    u = rng.random((B, 1)).astype(np.float32)
-    s = np.clip(np.floor(Pb * cum - u).astype(np.int64) + 1, 0, Pb).astype(np.int32)
-    return torch.as_tensor(s, device=dev), torch.as_tensor(rng.permuted(s, axis=1), device=dev)
-
-
 def check_rank(rs, real_s, dirichlet, peaks):
     """K3 at one (banks, particles) shape: bit-identical to its plain
     version on the real frame's s and on Dirichlet s (sorted and
     shuffled), then timed on the real frame's s beside its plain version
     and torch.searchsorted."""
     import torch
+
+    from gpmdm_tpu_torch.bench_kernels import time_ms
 
     cases = {"frame": real_s, "dirichlet": dirichlet[0], "dirichlet_shuffled": dirichlet[1]}
     errors = {}
@@ -227,9 +215,14 @@ def compare(name, kernel, plain, args):
     return outputs
 
 
-def check_kernel(name, kernel, plain, args, conditioned_args, peaks, work):
+def check_kernel(name, kernel, plain, args, conditioned_args, peaks, work, tiled=None,
+                 gemm=None):
     """The kernel against its plain version on the path's inputs and on
-    well-conditioned ones (see the module docstring), then timed."""
+    well-conditioned ones (see the module docstring), then timed; with
+    ``tiled(tile)``, a call at a forced particle tile, also timed at each
+    tile, and with ``gemm``, a yardstick call timed beside it."""
+    from gpmdm_tpu_torch.bench_kernels import time_ms
+
     path = compare(name, kernel, plain, args)
     for label, o in path.items():
         o["tol"] = 4 * o["plain_fp32_err"] + 1e-6
@@ -245,25 +238,18 @@ def check_kernel(name, kernel, plain, args, conditioned_args, peaks, work):
     ms = time_ms(lambda: kernel(*args))
     plain_ms = time_ms(lambda: plain(*args))
     bound_ms, bound_by = bound(*work, peaks)
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": CSRC, "replaces": REPLACES[name],
         "launches": 0,
         "max_abs_err": max(o["max_abs_err"] for o in path.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "path_inputs": path, "conditioned_inputs": conditioned,
     }
-
-
-def conditioned(N, Dout, dev, seed):
-    """Seeded weights A (N, Dout) and an SPD Kinv = I + B B^T (N, N), with
-    B ~ N(0, 1/N): eigenvalues in [1, about 5], so fp32 keeps its digits."""
-    import torch
-
-    g = torch.Generator(device=dev).manual_seed(seed)
-    B = torch.randn(N, N, generator=g, device=dev, dtype=torch.float64) / N ** 0.5
-    kinv = torch.eye(N, device=dev, dtype=torch.float64) + B @ B.T
-    A = torch.randn(N, Dout, generator=g, device=dev)
-    return A, kinv.float().contiguous()
+    if tiled is not None:
+        entry["tiles_ms"] = {str(tp): time_ms(lambda: tiled(tp)) for tp in TILES}
+    if gemm is not None:
+        entry["gemm_ms"] = time_ms(gemm)
+    return entry
 
 
 OUTPUT_NAMES = {
@@ -293,6 +279,8 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
     from gpmdm_tpu_torch import GPMDM, GPMDM_PF, PFConfig
+    from gpmdm_tpu_torch.bench_kernels import (RANK_SHAPES, conditioned, dirichlet_counts,
+                                               gemm_yardstick)
     from gpmdm_tpu_torch.data import synthetic
     from gpmdm_tpu_torch.filter import particle_filter as pf
     from gpmdm_tpu_torch.ops import _build
@@ -340,20 +328,37 @@ def main(argv) -> int:
     lam2 = torch.exp(2.0 * params.y_log_lambdas)
     Ax_cond, Kx_cond = conditioned(n_max, d, dev, seed=1)
     Ay_cond, Ky_cond = conditioned(Ny, D, dev, seed=2)
+
+    def check_k1(post_, xs_, inv_ls_, lin_w_, A_cond, K_cond):
+        """K1 (class 0) on post_'s rows, timed at every tile."""
+        n = post_.Xin_c.shape[1]
+        args = (post_.Xin_c[0], xs_, post_.Axc[0], post_.Kxc_inv[0], inv_ls_, lin_w_, n)
+        return check_kernel(
+            "fused_x_posterior", gpk.fused_x_posterior, gpk.fused_x_posterior_plain, args,
+            (post_.Xin_c[0], xs_, A_cond, K_cond, inv_ls_, lin_w_, n), peaks,
+            posterior_work(n, xs_.shape[0], xs_.shape[1], xs_.shape[1], True),
+            tiled=lambda tp: gpk._posterior_cuda("fused_x_posterior", *args, True, tile=tp))
+
+    def check_k2(post_, xs_, inv_ls_, lam2_, z, A_cond, K_cond):
+        """K2 on post_'s rows against z (one row per bank), timed at every
+        tile and beside the gemm yardstick."""
+        args = (post_.X, xs_, post_.Ay, post_.Ky_inv, inv_ls_, z, lam2_)
+        n_z = z.shape[0] if z.dim() == 2 else 1
+        return check_kernel(
+            "fused_obs_loglik", gpk.fused_obs_loglik, gpk.fused_obs_loglik_plain, args,
+            (post_.X, xs_, A_cond, K_cond, inv_ls_, z, lam2_), peaks,
+            obs_work(post_.X.shape[0], xs_.shape[0], xs_.shape[1], post_.Ay.shape[1], n_z),
+            tiled=lambda tp: gpk._obs_loglik_cuda(*args, tile=tp),
+            gemm=gemm_yardstick(*args[:5]))
+
     kernels = [
-        check_kernel("fused_x_posterior", gpk.fused_x_posterior, gpk.fused_x_posterior_plain,
-                     (post.Xin_c[0], xs, post.Axc[0], post.Kxc_inv[0], inv_ls_x, lin_w, n_max),
-                     (post.Xin_c[0], xs, Ax_cond, Kx_cond, inv_ls_x, lin_w, n_max),
-                     peaks, posterior_work(n_max, P, d, d, True)),
+        check_k1(post, xs, inv_ls_x, lin_w, Ax_cond, Kx_cond),
         check_kernel("fused_rbf_posterior", gpk.fused_rbf_posterior,
                      gpk.fused_rbf_posterior_plain,
                      (post.X, xs, post.Ay, post.Ky_inv, inv_ls_y),
                      (post.X, xs, Ay_cond, Ky_cond, inv_ls_y),
                      peaks, posterior_work(Ny, P, d, D, False)),
-        check_kernel("fused_obs_loglik", gpk.fused_obs_loglik, gpk.fused_obs_loglik_plain,
-                     (post.X, xs, post.Ay, post.Ky_inv, inv_ls_y, Z[0], lam2),
-                     (post.X, xs, Ay_cond, Ky_cond, inv_ls_y, Z[0], lam2),
-                     peaks, obs_work(Ny, P, d, D)),
+        check_k2(post, xs, inv_ls_y, lam2, Z[0], Ay_cond, Ky_cond),
     ]
     offsets = model.layout.y_class_offsets
 
@@ -378,19 +383,8 @@ def main(argv) -> int:
         if nb == 1:
             continue
         zb = Z[:nb].contiguous()
-        banked = (
-            (0, check_kernel("fused_x_posterior", gpk.fused_x_posterior,
-                             gpk.fused_x_posterior_plain,
-                             (post.Xin_c[0], xb, post.Axc[0], post.Kxc_inv[0], inv_ls_x,
-                              lin_w, n_max),
-                             (post.Xin_c[0], xb, Ax_cond, Kx_cond, inv_ls_x, lin_w, n_max),
-                             peaks, posterior_work(n_max, nb * pb, d, d, True))),
-            (2, check_kernel("fused_obs_loglik", gpk.fused_obs_loglik,
-                             gpk.fused_obs_loglik_plain,
-                             (post.X, xb, post.Ay, post.Ky_inv, inv_ls_y, zb, lam2),
-                             (post.X, xb, Ay_cond, Ky_cond, inv_ls_y, zb, lam2),
-                             peaks, obs_work(Ny, nb * pb, d, D, n_z=nb))),
-        )
+        banked = ((0, check_k1(post, xb, inv_ls_x, lin_w, Ax_cond, Kx_cond)),
+                  (2, check_k2(post, xb, inv_ls_y, lam2, zb, Ay_cond, Ky_cond)))
         for i, entry in banked:
             entry["shape"] = [nb, pb]
             kernels[i]["banked"].append(entry)
@@ -404,15 +398,40 @@ def main(argv) -> int:
                                          "C": C},
           "kernels": kernels})
 
+    _phase[0] = "large_n"
+    kernels[0]["large_n"], kernels[2]["large_n"] = [], []
+    for label, fname, with_k1 in LARGE_N:
+        m = GPMDM.load(os.path.join(ROOT, "bench_assets", fname), device=dev)
+        pst, prm = m.posterior, m.params
+        g = torch.Generator(device=dev).manual_seed(0)
+        xl = pf.pf_init(pst, m.layout.y_class_offsets, g, pfc).x.contiguous()
+        checks = [(2, pst.X.shape[0],
+                   check_k2(pst, xl, torch.exp(-prm.y_log_lengthscales),
+                            torch.exp(2.0 * prm.y_log_lambdas), Z[0],
+                            *conditioned(pst.X.shape[0], m.D, dev, seed=3)))]
+        if with_k1:
+            checks.append((0, pst.Xin_c.shape[1],
+                           check_k1(pst, xl, torch.exp(-prm.x_log_lengthscales),
+                                    torch.exp(prm.x_log_lin_coeff),
+                                    *conditioned(pst.Xin_c.shape[1], m.d, dev, seed=4))))
+        for i, rows, entry in checks:
+            entry.update(asset=label, rows=rows, shape=[1, xl.shape[0]])
+            kernels[i]["large_n"].append(entry)
+        del m, pst, prm, xl, checks
+        torch.cuda.empty_cache()
+    emit({"phase": "large_n", "kernels": [
+        {k: v for k, v in e.items() if k not in ("conditioned_inputs",)}
+        for i in (2, 0) for e in kernels[i]["large_n"]]})
+
     def reset_launches():
         gpk.reset_launches()
         rs.reset_launches()
 
-    def check_launches(label, frames):
-        """The counters against ``frames`` frames of C K1 launches, one of
-        K2 and one of K3, whatever the number of banks."""
+    def check_launches(label, frames, classes=C):
+        """The counters against ``frames`` frames of one K1 launch a class,
+        one of K2 and one of K3, whatever the number of banks."""
         got = {**gpk.LAUNCHES, **rs.LAUNCHES}
-        want = {"fused_x_posterior": frames * C, "fused_rbf_posterior": 0,
+        want = {"fused_x_posterior": frames * classes, "fused_rbf_posterior": 0,
                 "fused_obs_loglik": frames, "resample_rank": frames}
         if got != want:
             raise AssertionError(f"{label}: launch counts {got}, expected {want}")
@@ -525,15 +544,75 @@ def main(argv) -> int:
           "agg_fps": FLEET_BANKS * FLEET_FRAMES / min(fleet_walls), "walls_s": fleet_walls,
           "plain_agg_fps": FLEET_BANKS * FLEET_FRAMES / fleet_plain_wall,
           "device": kind, "nvidia_smi": smi})
+    def extra_asset(label, fname, Zx, trials, trial_labels, T):
+        """The asset's 200-frame path at P = 10,000 and its banked guard on
+        bench.py's trials, each with exact launch counts; the guard's
+        accuracy is reported, not gated."""
+        m = GPMDM.load(os.path.join(ROOT, "bench_assets", fname), device=dev)
+        pst, prm, cfg_x = m.posterior, m.params, m.config
+        Cx = pst.Xin_c.shape[0]
+        log_Tx = torch.log(torch.as_tensor(np.asarray(T), device=dev, dtype=m.dtype))
+
+        def run():
+            g = torch.Generator(device=dev).manual_seed(0)
+            s0 = pf.pf_init(pst, m.layout.y_class_offsets, g, pfc)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, o = pf.pf_scan(s0, Zx, pst, prm, log_Tx, cfg_x, pfc, generator=g)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, o
+
+        reset_launches()
+        wall, o = run()
+        path_launches = check_launches(f"{label} path", EXTRA_FRAMES, Cx)
+        probs = o.class_probs
+        if probs.shape != (EXTRA_FRAMES, Cx) or not torch.isfinite(probs).all():
+            raise AssertionError(f"{label}: class_probs not finite or of the wrong shape")
+        if not torch.allclose(probs.sum(1), torch.ones_like(probs[:, 0]), atol=1e-4):
+            raise AssertionError(f"{label}: class_probs rows do not sum to 1")
+        walls = [wall, run()[0]]
+        T_pad = pf.bucket_length(max(len(q) for q in trials))
+        reset_launches()
+        rep = evaluate_pf_banked(m, T, trials, trial_labels, num_particles=N_PARTICLES,
+                                 burn_in=5, seed=0, config=pfc)
+        guard_launches = check_launches(f"{label} banked guard", T_pad, Cx)
+        emit({"phase": label, "classes": Cx, "d": m.d, "D": m.D, "Ny": pst.X.shape[0],
+              "n_max": pst.Xin_c.shape[1], "particles": N_PARTICLES, "frames": EXTRA_FRAMES,
+              "path_launches": path_launches, "fps": EXTRA_FRAMES / min(walls),
+              "walls_s": walls, "banked_guard": {
+                  "frame_acc": rep.frame_metrics["accuracy"], "frame_f1": rep.frame_metrics["f1"],
+                  "trial_acc": rep.trial_metrics["accuracy"], "frames": rep.total_frames,
+                  "banks": len(trials), "padded_frames": T_pad, "wall_s": rep.total_wall_s,
+                  "agg_fps": rep.fps, "launches": guard_launches},
+              "device": kind, "nvidia_smi": smi})
+        return path_launches, guard_launches
+
+    # bench.py's extras: d4 on the headline's stream and trials; c8 on its
+    # 8-class task (bench.py:328-366), deployed exact
+    _phase[0] = "d4"
+    d4 = extra_asset("d4", "bench_model_d4.npz", Z[:EXTRA_FRAMES].contiguous(), q_seqs,
+                     q_labels, TRANSITIONS)
+    _phase[0] = "c8"
+    _, _, te8, tel8 = synthetic.make_dataset(
+        n_classes=8, n_train_seqs=2, n_test_seqs=2, seq_len=60, D=10, seed=21,
+        center_spread=3.0, class_signature=1.0)
+    T8 = np.full((8, 8), 0.1 / 7)
+    np.fill_diagonal(T8, 0.9)
+    Z8 = torch.as_tensor(np.concatenate(te8 * 10, axis=0)[:EXTRA_FRAMES], device=dev,
+                         dtype=torch.float32)
+    c8 = extra_asset("c8", "bench_model_c8.npz", Z8, te8, tel8, T8)
+
     for k in kernels:
-        k["launches_by_phase"] = {"path": launches[k["name"]],
-                                  "banked_guard": banked_launches[k["name"]],
-                                  "fleet": fleet_launches[k["name"]]}
+        n = k["name"]
+        k["launches_by_phase"] = {"path": launches[n], "banked_guard": banked_launches[n],
+                                  "fleet": fleet_launches[n], "d4_path": d4[0][n],
+                                  "d4_banked_guard": d4[1][n], "c8_path": c8[0][n],
+                                  "c8_banked_guard": c8[1][n]}
 
     _phase[0] = "report"
     heavy = ("path_inputs", "conditioned_inputs")
     emit({"kernels": [{k: ([{kk: vv for kk, vv in e.items() if kk not in heavy} for e in v]
-                           if k == "banked" else v)
+                           if k in ("banked", "large_n") else v)
                        for k, v in kern.items() if k not in heavy}
                       for kern in kernels]})
     print(f"{smi} (total {time.perf_counter() - t_start:.1f} s)", flush=True)

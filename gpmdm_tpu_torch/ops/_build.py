@@ -8,6 +8,10 @@ the checkout: written under a temporary name, then moved into place with
 ``os.replace``, so concurrent first uses never see half a file and no lock
 file is needed.  nvcc's output, including the ``-Xptxas -v`` register and
 shared-memory report, goes to stderr.
+
+Variants for measurement come from the same sources with compile-time
+``-D`` flags (``library(defines=("GP_SKIP_GEN",))``); each set of flags
+builds into its own directory.
 """
 
 from __future__ import annotations
@@ -36,11 +40,10 @@ _I = ctypes.c_int
 # (restype, argtypes) of each launcher; pointers and the stream are c_void_p
 # so that ctypes never cuts a 64-bit address to a 32-bit int.
 _SIGNATURES = {
-    "gp_posterior_launch": (_I, [_P] * 8 + [_I] * 6 + [_P]),
-    "obs_loglik_launch": (_I, [_P] * 9 + [_I] * 5 + [_P]),
-    "gp_smem_bytes": (ctypes.c_size_t, [_I] * 5),
-    "resample_rank_launch": (_I, [_P] * 3 + [_I] * 2 + [_P]),
-    "resample_rank_setup": (_I, []),
+    "gp_plan": (_I, [_I] * 5 + [_P]),
+    "gp_posterior_launch": (_I, [_P] * 8 + [_I] * 8 + [_P] * 3),
+    "obs_loglik_launch": (_I, [_P] * 9 + [_I] * 7 + [_P] * 3),
+    "resample_rank_launch": (_I, [_P] * 2 + [_I] * 2 + [_P]),
 }
 
 
@@ -55,18 +58,23 @@ def nvcc_path() -> str:
     return found
 
 
-def build_dir() -> Path:
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def build_dir(defines: tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256()
     for src in SOURCES:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_ROOT / h.hexdigest()
 
 
-def build() -> Path:
-    """Compile the kernels if this source/flag hash has no library yet."""
-    out_dir = build_dir()
+def build(defines: tuple[str, ...] = ()) -> Path:
+    """Compile the kernels if this source/flag hash has no library yet;
+    ``defines`` are ``NAME=VALUE`` macros for a measurement variant."""
+    out_dir = build_dir(defines)
     lib = out_dir / "libgpmdm_kernels.so"
     if lib.exists():
         return lib
@@ -74,7 +82,7 @@ def build() -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=".build-", suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    cmd = [nvcc, *_flags(defines), "-o", tmp, *map(str, SOURCES)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=NVCC_TIMEOUT_S)
@@ -92,9 +100,9 @@ def build() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
+def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The built kernel library, with every launcher's ctypes signature set."""
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build(defines)))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype = restype

@@ -1,389 +1,509 @@
 // Fused exact-GP posterior kernels for Hopper (sm_90a), in plain fp32.
 //
-// Replaces the Pallas TPU kernels of gpmdm_tpu/ops/pallas/gp_posterior.py:
+// Replaces the Pallas TPU kernels of gpmdm_tpu/ops/pallas/gp_posterior.py,
+// all three on one streamed core, posterior_core<TP, KIND>:
 //
-//   gp_posterior_kernel<HAS_LINEAR=true>   replaces _fused_posterior/_kernel
-//       (has_linear=True) behind fused_x_posterior: the per-class dynamics
-//       posterior of the particle filter (RBF + homogeneous linear star
-//       kernel, rows >= n_valid masked to exactly 0).
-//   gp_posterior_kernel<HAS_LINEAR=false>  replaces the same body with
-//       has_linear=False behind fused_rbf_posterior (RBF star kernel).
-//   obs_loglik_kernel                      replaces _obs_loglik_kernel behind
-//       fused_obs_loglik: RBF star kernel -> mean (never leaves the chip)
-//       -> qres = sum_j lam2_j (mean_j - z_j)^2 and the variance quad.
-//       Bank-aware: with B banks of Pb = P / B particles, particle p is
-//       weighed against its own bank's row z[p / Pb] (what the JAX
-//       package's jax.vmap of fused_obs_loglik computes); a block's
-//       particle tile may straddle two banks, so the row is chosen per
-//       particle, never per block.
+//   KIND_X   replaces _fused_posterior/_kernel (has_linear=True) behind
+//            fused_x_posterior: the per-class dynamics posterior of the
+//            particle filter (RBF + homogeneous linear star kernel, rows
+//            >= n_valid masked to exactly 0).
+//   KIND_RBF replaces the same body with has_linear=False behind
+//            fused_rbf_posterior (RBF star kernel).
+//   KIND_OBS replaces _obs_loglik_kernel behind fused_obs_loglik: the
+//            variance quad and qres = sum_j lam2_j (mean_j - z_j)^2, with
+//            the mean never leaving the chip.  Bank-aware: with B banks of
+//            Pb = P / B particles, particle p is weighed against its own
+//            bank's row z[p / Pb], chosen per particle (a block's particle
+//            tile may straddle two banks).
 //
-// Each block owns TP particles and computes, with N training rows,
-//   Kstar[i, p] = exp(-sum_k (xt_ik - xs_pk)^2) [+ sum_k lt_ik ls_pk + bias]
-//   mean[p, :]  = sum_i Kstar[i, p] A[i, :]
-//   quad[p]     = sum_i Kstar[i, p] * (sum_m Kinv[i, m] Kstar[m, p])
-// where xt/xs are the inputs scaled by the inverse lengthscales and lt/ls
-// by the linear-kernel weights (both scalings done here, one fp32 multiply
-// each, as the JAX wrapper does before its kernel).
+// With N training rows, Dout outputs and the inputs scaled by the inverse
+// lengthscales (lt/ls by the linear weights), each block owns TP particles:
+//   Kstar[m, p] = exp(-sum_k (xt_mk - xs_pk)^2) [+ sum_k lt_mk ls_pk + bias]
+//   G = M^T Kstar,  M = [Kinv | A]  (N x (N + Dout), rows m contiguous)
+//   quad[p]    = sum_{c < N} Kstar[c, p] G[c, p]    (k^T Kinv^T k = k^T Kinv k)
+//   mean[p, j] = G[N + j, p]
+// so the mean is Dout more columns of the same product, not a second loop.
 //
-// What bounds it on the H100: the quad is 2 N^2 P flops against N^2 + small
-// bytes of input, so the work is compute-bound (N=480, P=10k: 4.6 GFLOP,
-// 1.2 MB) at the fp32 rate outside the tensor cores.  No tensor cores: fp32
-// inputs there run TF32, whose 10-bit mantissa wrecks the catastrophic
-// cancellation in var = kdiag - quad.  Squared distances are summed per
-// dimension, never by the |a|^2 + |b|^2 - 2ab expansion, for the same reason.
+// What bounds it on the H100: 2 N (N + Dout) P flops against N^2 + small
+// bytes, so the fp32 rate outside the tensor cores (N = 480, P = 120,000:
+// 60 GFLOP, 0.89 ms at 67 TFLOP/s).  No tensor cores: fp32 there runs as
+// TF32, whose 10-bit mantissa wrecks the cancellation in var = kdiag - quad.
+// Squared distances are summed per dimension, never by the norm expansion,
+// for the same reason.
 //
-// Design.  The TPU grid walks Kinv row tiles in order and carries quad in
-// scratch; here blocks run in no order, so each block keeps its whole
-// (N, TP) Kstar tile in dynamic shared memory (the opt-in above 48 KB) and
-// loops over Kinv inside itself.  The quad is a GEMM, G = Kinv^T Kstar,
-// reduced on the fly against Kstar: k^T Kinv k = k^T Kinv^T k exactly, so
-// the block streams Kinv by rows into shared memory in (MB x RC) tiles
-// (contiguous in device memory, eight loads in flight per thread) and each
-// thread accumulates an 8 x 8 register tile of G (8 particles x 8 rows):
-// 64 fp32 FMAs per four float4 shared-memory loads, which balances the
-// SM's shared-memory bandwidth (128 B/cycle) against its FMA rate.  A
-// block covers 256 rows of G per pass and 64 particles when N <= 256, or
-// 512 rows and 32 particles otherwise, so a pass wastes little on padding
-// and two blocks fit per SM at the bench shapes (K1 N=236, K2 N=480), one
-// block's tile loads overlapping the other's FMAs.  The ragged last
-// particle tile computes on zero inputs and stores nothing.
+// Design.  Kstar is never stored whole, so a block's shared memory does not
+// depend on N.  A block walks the columns of G in passes of RC; in each
+// pass it streams M by MB-row tiles through a two-stage ring filled with
+// cp.async (the next tile loads while this one feeds the FMAs: one barrier
+// a tile) and generates the matching (MB x TP) Kstar tile from the raw
+// training rows, staged two tiles ahead, and the d scaled inputs of each
+// particle, kept in registers for d <= DMAX.  Each thread holds an 8 x 8
+// register tile of G (8 particles x 8 columns, in two halves so that a
+// quarter warp reads neighbouring float4: no bank conflicts): 64 FMAs per
+// four float4 shared-memory loads.  A warp whose columns all lie past
+// N + Dout skips its FMAs.  The epilogue regenerates Kstar[c, p] for the
+// thread's own columns (N x TP exps a pass, against 2 N RC TP FMAs) and
+// folds G into quad, the mean or qres; per-particle sums meet in shared
+// memory.  TP is 64 (RC 256) or 128 (RC 128): 128 halves the M tiles
+// re-read from L2 per particle, 64 halves the regenerations.  When the
+// particle tiles alone cannot fill the card (P = 10,000), the passes are
+// dealt over several blocks a tile and the last block of a tile to finish
+// adds their sums in a fixed order, so the result does not depend on
+// timing (gp_plan); it also sets the tile's ticket back to 0, so one
+// zeroed ticket array serves every launch.  The ragged last particle tile computes on zero
+// inputs and stores nothing.
 //
-// Each launcher returns cudaGetLastError() so the caller can raise, or
-// SMEM_TOO_LARGE (-1) for a shape whose star tile does not fit on chip.
+// Measured (PERF.md): about a third of the fp32 bound on the banks; the
+// Kstar regeneration and the staging the FMAs do not hide cost about as
+// much as the FMA loop, which itself runs near half the fp32 issue rate.
+//
+// Each launcher returns cudaGetLastError() (0 on success).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;         // threads per block
-constexpr int PP = 8;           // particles per thread in the quad
-constexpr int CC = 8;           // G rows per thread in the quad
-constexpr int MB = 16;          // Kinv rows per staged tile
-constexpr int LB = 8;           // staging loads in flight per thread
+// Compile-time flags for measurement variants (ops/_build.py defines=):
+//   GP_SKIP_GEN  Kstar tiles are not generated (timing only: wrong results);
+//   GP_SKIP_FMA  the FMA loop does not run (timing only: wrong results).
+constexpr int NT = 256;  // threads per block
+constexpr int PP = 8;    // particles per thread
+constexpr int CC = 8;    // columns of G per thread, a multiple of 4
+constexpr int MB = 16;   // rows of M (and of Kstar) per ring stage
+constexpr int DMAX = 4;  // latent widths whose star kernel runs from registers
 
-// The quad's block tile: RC rows of G per pass over Kinv, TP particles.
-// PP x CC per thread over NT threads fixes TP * RC = NT * PP * CC.
-template <int RC>
+constexpr int KIND_RBF = 0, KIND_X = 1, KIND_OBS = 2;
+
+// The block tile: TP particles x RC columns of G, as a TX x TY grid of
+// threads, each holding PP x CC outputs in two halves: particles
+// tx*4 .. tx*4+3 and TP/2 + tx*4 .., columns ty*4 .. ty*4+3 and RC/2 + ty*4
+// ..  So the eight lanes of a quarter warp read eight neighbouring float4 of
+// the Kstar tile and one (broadcast) float4 of the M tile: no bank
+// conflicts.  A warp is LX x LY threads.
+template <int TP>
 struct Tile {
-  static constexpr int CG = RC / CC;      // row groups
-  static constexpr int PG = NT / CG;      // particle groups
-  static constexpr int TP = PG * PP;      // particles per block
-  static constexpr int KST = RC + 4;      // staged tile row stride (float4-aligned)
-  static_assert(CG * PG == NT, "the quad's thread tiling must cover the block");
-  static_assert((MB * RC) % (NT * LB) == 0, "staging batches must tile the tile");
+  static constexpr int TX = TP / PP;         // threads along the particles
+  static constexpr int TY = NT / TX;         // threads along the columns
+  static constexpr int RC = TY * CC;         // columns per pass
+  static constexpr int LX = TX < 8 ? TX : 8;  // a warp's lanes along the particles
+  static constexpr int LY = 32 / LX;
+  static constexpr int WX = TX / LX;         // warps along the particles
+  static constexpr int STAGE = MB * RC;      // floats of one staged M tile
+  static constexpr int KT = MB * TP;         // floats of one Kstar tile
+  static_assert(TX * TY == NT && LX * LY == 32, "the thread grid covers the block");
+  static_assert((MB * RC / 4) % NT == 0, "staging covers the tile evenly");
+  static_assert(NT % TP == 0 && MB % (NT / TP) == 0, "a thread generates one particle");
 };
 
-// One pass covers N <= 256 with little padding; larger N take 512-row passes.
-__host__ __device__ inline int rows_per_pass(int N) { return N <= 256 ? 256 : 512; }
-
-__host__ __device__ inline int tile_p(int N) {
-  return rows_per_pass(N) == 256 ? Tile<256>::TP : Tile<512>::TP;
+// Asynchronous global -> shared copies: cp.async on the card, a plain copy
+// elsewhere.  copy_async4 writes 0 when !valid (src is then not read).
+__device__ inline void copy_async4(float* dst, const float* src, bool valid) {
+#if defined(__CUDA_ARCH__)
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sa), "l"(src),
+               "r"(valid ? 4 : 0));
+#else
+  *dst = valid ? *src : 0.f;
+#endif
 }
 
-// Dynamic shared-memory floats of one block.
-__host__ __device__ inline size_t smem_floats(int N, int d, int Dout,
-                                              bool has_linear, bool obs) {
-  const int RC = rows_per_pass(N), TP = tile_p(N);
-  size_t f = (size_t)N * TP          // Kstar tile
-           + (size_t)MB * (RC + 4)   // staged Kinv tile
-           + (size_t)(RC / CC) * TP  // quad partial sums
-           + (size_t)N * d           // scaled training inputs
-           + (size_t)TP * d;         // scaled particles
-  if (has_linear) f += (size_t)N * d + (size_t)TP * d;
-  if (obs) f += (size_t)TP * Dout;   // posterior mean tile
-  return f;
+// 16 bytes; dst and src 16-byte aligned.
+__device__ inline void copy_async16(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(src));
+#else
+  for (int u = 0; u < 4; ++u) dst[u] = src[u];
+#endif
 }
 
-// Stages the scaled inputs and builds the (N, TP) star-kernel tile.
-template <int TP, bool HAS_LINEAR>
-__device__ void build_kstar(float* ks, float* xt_s, float* xs_s, float* lt_s,
-                            float* ls_s, const float* __restrict__ xt,
-                            const float* __restrict__ xs,
-                            const float* __restrict__ inv_ls,
-                            const float* __restrict__ lin_w, int N, int P,
-                            int d, int n_valid, int p0) {
-  const int tid = threadIdx.x;
-  for (int e = tid; e < N * d; e += NT) {
-    const int k = e % d;
-    const float x = xt[e];
-    xt_s[e] = x * inv_ls[k];
-    if (HAS_LINEAR) lt_s[e] = x * lin_w[k];
-  }
-  for (int e = tid; e < TP * d; e += NT) {
-    const int p = e / d, k = e % d;
-    const float x = (p0 + p < P) ? xs[(size_t)(p0 + p) * d + k] : 0.f;
+// Closes this thread's batch of copies, then waits for all of them.
+__device__ inline void copy_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+template <int TP, int KIND>
+__global__ void __launch_bounds__(NT, 2)
+posterior_core(const float* __restrict__ xt, const float* __restrict__ xs,
+               const float* __restrict__ inv_ls, const float* __restrict__ lin_w,
+               const float* __restrict__ A, const float* __restrict__ kinv,
+               const float* __restrict__ z, const float* __restrict__ lam2,
+               float* __restrict__ out0, float* __restrict__ out1, int N, int P, int d,
+               int Dout, int n_valid, int Pb, int splits, float* __restrict__ partial,
+               int* __restrict__ ticket) {
+  using T = Tile<TP>;
+  constexpr bool LIN = KIND == KIND_X, OBS = KIND == KIND_OBS;
+  extern __shared__ __align__(16) float smem[];
+  float* mt = smem;                 // ring of two M tiles, MB x RC each
+  float* kt = mt + 2 * T::STAGE;    // ring of two Kstar tiles, MB x TP each
+  float* red = kt + 2 * T::KT;      // per-particle sums by thread row, (1 | 2) x TY x TP
+  float* xr = red + (OBS ? 2 : 1) * T::TY * TP;  // ring of three raw row tiles, MB x d
+  float* il_s = xr + 3 * MB * d;    // inverse lengthscales, d
+  float* lw_s = il_s + d;           // linear weights, d
+  float* xs_s = lw_s + d;           // scaled particles, d x TP
+  float* ls_s = xs_s + d * TP;      // linear-scaled particles, d x TP (K1 only)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tx = (warp % T::WX) * T::LX + lane % T::LX;
+  const int ty = (warp / T::WX) * T::LY + lane / T::LX;
+  const int col0 = (warp / T::WX) * T::LY * 4;  // the warp's first column in a pass
+  const int p0 = blockIdx.x * TP;
+  const int Ncol = N + Dout;
+  const bool vec = N % 4 == 0 && ((uintptr_t)kinv & 15) == 0;  // Kinv rows 16-byte aligned
+  const float bias = LIN ? lin_w[d] * lin_w[d] : 0.f;
+
+  for (int e = tid; e < d * TP; e += NT) {
+    const int k = e / TP, p = e % TP;
+    const float x = p0 + p < P ? xs[(size_t)(p0 + p) * d + k] : 0.f;
     xs_s[e] = x * inv_ls[k];
-    if (HAS_LINEAR) ls_s[e] = x * lin_w[k];
+    if (LIN) ls_s[e] = x * lin_w[k];
   }
+  for (int k = tid; k < d; k += NT) {
+    il_s[k] = inv_ls[k];
+    if (LIN) lw_s[k] = lin_w[k];
+  }
+  for (int e = tid; e < (OBS ? 2 : 1) * T::TY * TP; e += NT) red[e] = 0.f;
   __syncthreads();
-  float bias = 0.f;
-  if (HAS_LINEAR) bias = lin_w[d] * lin_w[d];
-  for (int e = tid; e < N * TP; e += NT) {
-    const int i = e / TP, p = e % TP;
-    float v = 0.f;
-    if (i < n_valid) {
-      float sq = 0.f;
-      for (int k = 0; k < d; ++k) {
-        const float diff = xt_s[i * d + k] - xs_s[p * d + k];
-        sq += diff * diff;
-      }
-      v = expf(-sq);
-      if (HAS_LINEAR) {
-        float lin = 0.f;
-        for (int k = 0; k < d; ++k) lin += lt_s[i * d + k] * ls_s[p * d + k];
-        v = v + lin + bias;
-      }
-    }
-    ks[e] = v;
-  }
-  __syncthreads();
-}
 
-// mean[p, j] = sum_i Kstar[i, p] A[i, j] into out[p * Dout + j].  Thread
-// (p, jg) owns one particle and mj <= MJ consecutive outputs, so each
-// Kstar load feeds mj independent FMA chains (one output per thread left
-// the loop bound by its single chain); mj shrinks for small Dout so that
-// the outputs spread over all NT / TP thread groups.  Rows with
-// p0 + p >= P are skipped unless P < 0 (the on-chip mean tile, which
-// takes every row).
-template <int TP>
-__device__ void block_mean(const float* ks, const float* __restrict__ A,
-                           float* out, int N, int Dout, int P, int p0) {
-  constexpr int MJ = 5, NG = NT / TP;
-  const int mj = min(MJ, (Dout + NG - 1) / NG);
-  const int p = threadIdx.x % TP, jg = threadIdx.x / TP;
-  for (int jb = 0; jb < Dout; jb += mj * NG) {
-    const int j0 = jb + jg * mj;
-    float acc[MJ];
-#pragma unroll
-    for (int q = 0; q < MJ; ++q) acc[q] = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < N; ++i) {
-      const float kv = ks[i * TP + p];
-#pragma unroll
-      for (int q = 0; q < MJ; ++q)
-        if (q < mj && j0 + q < Dout) acc[q] = fmaf(kv, A[(size_t)i * Dout + j0 + q], acc[q]);
+  // Kstar[m, p] of this block's particle p from training row x (d floats);
+  // 0 for masked rows.
+  auto finish = [&](float sq, float lin) {
+    const float v = expf(-sq);
+    return LIN ? v + lin + bias : v;
+  };
+  auto star = [&](int m, const float* x, int p) {
+    if (m >= n_valid) return 0.f;
+    float sq = 0.f, lin = 0.f;
+    for (int k = 0; k < d; ++k) {
+      const float diff = x[k] * il_s[k] - xs_s[k * TP + p];
+      sq += diff * diff;
+      if (LIN) lin += (x[k] * lw_s[k]) * ls_s[k * TP + p];
     }
+    return finish(sq, lin);
+  };
+  // The Kstar tiles are generated by thread tid for particle tid % TP
+  // only, so for d <= DMAX that particle's inputs and the weights stay in
+  // registers and each element costs one shared-memory load per dimension.
+  const int gp = tid % TP;
+  float gx[DMAX], gl[DMAX], gi[DMAX], gw[DMAX];
 #pragma unroll
-    for (int q = 0; q < MJ; ++q)
-      if (q < mj && j0 + q < Dout && (P < 0 || p0 + p < P))
-        out[(size_t)p * Dout + j0 + q] = acc[q];
+  for (int k = 0; k < DMAX; ++k) {
+    const bool in = k < d;
+    gx[k] = in ? xs_s[k * TP + gp] : 0.f;
+    gl[k] = in && LIN ? ls_s[k * TP + gp] : 0.f;
+    gi[k] = in ? il_s[k] : 0.f;
+    gw[k] = in && LIN ? lw_s[k] : 0.f;
   }
-}
+  // the output index of the thread's a-th particle / b-th column
+  auto part = [&](int a) { return (a < 4 ? 0 : TP / 2 - 4) + tx * 4 + a; };
+  auto column = [&](int b) { return (b / 4) * 4 * T::TY + ty * 4 + b % 4; };
 
-// quad[p] for this block's particles; the full sum lands in thread p < TP.
-template <int RC>
-__device__ float block_quad(const float* ks, float* kit, float* red,
-                            const float* __restrict__ kinv, int N) {
-  using T = Tile<RC>;
-  constexpr int TP = T::TP, KST = T::KST;
-  const int tid = threadIdx.x;
-  const int pg = tid % T::PG, cg = tid / T::PG;
-  float acc[PP];
+  const int steps = (N + MB - 1) / MB;
+  // this block's passes: blockIdx.y, + splits, ..
+  for (int c0 = blockIdx.y * T::RC; c0 < Ncol; c0 += splits * T::RC) {
+    const bool active = c0 + col0 < Ncol;
+
+    // rows m0 .. m0+MB of M's columns c0 .. c0+RC into a ring stage
+    auto stage_m = [&](int m0, float* dst) {
+      constexpr int Q = T::RC / 4;
+      for (int e = tid; e < MB * Q; e += NT) {
+        const int mm = e / Q, r = 4 * (e % Q);
+        const int m = m0 + mm, c = c0 + r;
+        float* to = dst + mm * T::RC + r;
+        if (vec && m < N && c < N) {
+          copy_async16(to, kinv + (size_t)m * N + c);
+        } else if (c < Ncol) {
+          for (int u = 0; u < 4; ++u) {
+            const int cu = c + u;
+            const bool ok = m < N && cu < Ncol;
+            const float* src = !ok ? kinv
+                               : cu < N ? kinv + (size_t)m * N + cu
+                                        : A + (size_t)m * Dout + (cu - N);
+            copy_async4(to + u, src, ok);
+          }
+        }
+      }
+    };
+    // the raw training rows m0 .. m0+MB
+    auto stage_x = [&](int m0, float* dst) {
+      for (int e = tid; e < MB * d; e += NT) {
+        const bool ok = m0 * d + e < N * d;
+        copy_async4(dst + e, ok ? xt + (size_t)m0 * d + e : xt, ok);
+      }
+    };
+    // the Kstar tile of rows m0 .. m0+MB from their staged raw rows
+    // this thread's share of the Kstar tile of rows m0 .. m0+MB, from
+    // their staged raw rows x: rows tid / TP, + NT / TP, ..
+    auto gen = [&](int m0, const float* x, float* dst) {
+      for (int mm = tid / TP; mm < MB; mm += NT / TP) {
+        const float* xm = x + mm * d;
+        float v = 0.f;
+        if (d > DMAX) {
+          v = star(m0 + mm, xm, gp);
+        } else if (m0 + mm < n_valid) {
+          float sq = 0.f, lin = 0.f;
 #pragma unroll
-  for (int a = 0; a < PP; ++a) acc[a] = 0.f;
-  for (int c0 = 0; c0 < N; c0 += RC) {
+          for (int k = 0; k < DMAX; ++k) {
+            if (k < d) {
+              const float diff = xm[k] * gi[k] - gx[k];
+              sq += diff * diff;
+              if (LIN) lin += (xm[k] * gw[k]) * gl[k];
+            }
+          }
+          v = finish(sq, lin);
+        }
+        dst[mm * TP + gp] = v;
+      }
+    };
+
     float s[PP][CC];
 #pragma unroll
     for (int a = 0; a < PP; ++a)
 #pragma unroll
       for (int b = 0; b < CC; ++b) s[a][b] = 0.f;
-    for (int m0 = 0; m0 < N; m0 += MB) {
-      __syncthreads();
-      // kit[mm][r] = Kinv[m0 + mm][c0 + r]: G[c0 + r] = sum_m Kinv[m][c0 + r] k_m
-      for (int e0 = tid; e0 < MB * RC; e0 += NT * LB) {
-        float v[LB];
+
+    // the rings run ahead: M and Kstar one tile, the raw rows two tiles
+    stage_x(0, xr);
+    if (steps > 1) stage_x(MB, xr + MB * d);
+    stage_m(0, mt);
+    copy_wait_all();
+    __syncthreads();
+    gen(0, xr, kt);
+    __syncthreads();
+    for (int t = 0; t < steps; ++t) {
+      const int cur = t & 1;
+      if (t + 1 < steps) {
+        stage_m((t + 1) * MB, mt + (cur ^ 1) * T::STAGE);
+#ifndef GP_SKIP_GEN
+        gen((t + 1) * MB, xr + ((t + 1) % 3) * MB * d, kt + (cur ^ 1) * T::KT);
+#endif
+      }
+      if (t + 2 < steps) stage_x((t + 2) * MB, xr + ((t + 2) % 3) * MB * d);
+#ifdef GP_SKIP_FMA
+      if (false) {
+#else
+      if (active) {
+#endif
+        const float* mb = mt + cur * T::STAGE + ty * 4;
+        const float* kb = kt + cur * T::KT + tx * 4;
+#pragma unroll 4
+        for (int mm = 0; mm < MB; ++mm) {
+          const float4 k0 = *reinterpret_cast<const float4*>(kb + mm * TP);
+          const float4 k1 = *reinterpret_cast<const float4*>(kb + mm * TP + TP / 2);
+          const float kv[PP] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+          float cv[CC];
 #pragma unroll
-        for (int b = 0; b < LB; ++b) {
-          const int e = e0 + b * NT, mm = e / RC, r = e % RC;
-          v[b] = (m0 + mm < N && c0 + r < N) ? kinv[(size_t)(m0 + mm) * N + c0 + r] : 0.f;
-        }
+          for (int q = 0; q < CC / 4; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(mb + mm * T::RC + q * 4 * T::TY);
+            cv[4 * q] = v.x;
+            cv[4 * q + 1] = v.y;
+            cv[4 * q + 2] = v.z;
+            cv[4 * q + 3] = v.w;
+          }
 #pragma unroll
-        for (int b = 0; b < LB; ++b) {
-          const int e = e0 + b * NT;
-          kit[(e / RC) * KST + e % RC] = v[b];
+          for (int a = 0; a < PP; ++a)
+#pragma unroll
+            for (int b = 0; b < CC; ++b) s[a][b] = fmaf(kv[a], cv[b], s[a][b]);
         }
       }
+      copy_wait_all();
       __syncthreads();
-      const int mb = min(MB, N - m0);
-#pragma unroll 2
-      for (int mm = 0; mm < mb; ++mm) {
-        const float4* kp = reinterpret_cast<const float4*>(ks + (m0 + mm) * TP + pg * PP);
-        const float4* cp = reinterpret_cast<const float4*>(kit + mm * KST + cg * CC);
-        const float4 k0 = kp[0], k1 = kp[1], c0v = cp[0], c1v = cp[1];
-        const float kv[PP] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-        const float cv[CC] = {c0v.x, c0v.y, c0v.z, c0v.w, c1v.x, c1v.y, c1v.z, c1v.w};
-#pragma unroll
-        for (int a = 0; a < PP; ++a)
-#pragma unroll
-          for (int b = 0; b < CC; ++b) s[a][b] = fmaf(kv[a], cv[b], s[a][b]);
-      }
     }
+
+    // epilogue: fold this pass's columns of G into quad, the mean or qres;
+    // each thread adds into its own entries of red
+    if (active) {
+      float qacc[PP], racc[PP];
 #pragma unroll
-    for (int b = 0; b < CC; ++b) {
-      const int i = c0 + cg * CC + b;
-      if (i < N) {
-        const float4* kp = reinterpret_cast<const float4*>(ks + i * TP + pg * PP);
-        const float4 k0 = kp[0], k1 = kp[1];
-        const float kv[PP] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+      for (int a = 0; a < PP; ++a) qacc[a] = racc[a] = 0.f;
 #pragma unroll
-        for (int a = 0; a < PP; ++a) acc[a] = fmaf(kv[a], s[a][b], acc[a]);
+      for (int b = 0; b < CC; ++b) {
+        const int c = c0 + column(b);
+        if (c < N) {
+#pragma unroll
+          for (int a = 0; a < PP; ++a)
+            qacc[a] = fmaf(star(c, xt + (size_t)c * d, part(a)), s[a][b], qacc[a]);
+        } else if (c < Ncol) {
+          const int j = c - N;
+#pragma unroll
+          for (int a = 0; a < PP; ++a) {
+            const int p = p0 + part(a);
+            if (OBS) {
+              const float diff = s[a][b] - z[(size_t)(min(p, P - 1) / Pb) * Dout + j];
+              racc[a] += lam2[j] * diff * diff;
+            } else if (p < P) {
+              out0[(size_t)p * Dout + j] = s[a][b];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < PP; ++a) {
+        red[ty * TP + part(a)] += qacc[a];
+        if (OBS) red[(T::TY + ty) * TP + part(a)] += racc[a];
       }
     }
   }
-#pragma unroll
-  for (int a = 0; a < PP; ++a) red[cg * TP + pg * PP + a] = acc[a];
+
+  // per-particle sums over the TY thread rows
   __syncthreads();
-  float total = 0.f;
+  float q = 0.f, r = 0.f;
   if (tid < TP) {
-    for (int g = 0; g < T::CG; ++g) total += red[g * TP + tid];
-  }
-  return total;
-}
-
-template <int RC, bool HAS_LINEAR>
-__global__ void __launch_bounds__(NT, 2)
-gp_posterior_kernel(const float* __restrict__ xt, const float* __restrict__ xs,
-                    const float* __restrict__ inv_ls,
-                    const float* __restrict__ lin_w,
-                    const float* __restrict__ A, const float* __restrict__ kinv,
-                    float* __restrict__ mean, float* __restrict__ quad, int N,
-                    int P, int d, int Dout, int n_valid) {
-  using T = Tile<RC>;
-  constexpr int TP = T::TP;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* kit = ks + (size_t)N * TP;
-  float* red = kit + (size_t)MB * T::KST;
-  float* xt_s = red + (size_t)T::CG * TP;
-  float* xs_s = xt_s + (size_t)N * d;
-  float* lt_s = xs_s + (size_t)TP * d;
-  float* ls_s = lt_s + (size_t)N * d;
-  const int p0 = blockIdx.x * TP;
-  build_kstar<TP, HAS_LINEAR>(ks, xt_s, xs_s, lt_s, ls_s, xt, xs, inv_ls, lin_w,
-                              N, P, d, n_valid, p0);
-  block_mean<TP>(ks, A, mean + (size_t)p0 * Dout, N, Dout, P, p0);
-  const float q = block_quad<RC>(ks, kit, red, kinv, N);
-  if (threadIdx.x < TP && p0 + threadIdx.x < P) quad[p0 + threadIdx.x] = q;
-}
-
-template <int RC>
-__global__ void __launch_bounds__(NT, 2)
-obs_loglik_kernel(const float* __restrict__ xt, const float* __restrict__ xs,
-                  const float* __restrict__ inv_ls, const float* __restrict__ A,
-                  const float* __restrict__ kinv, const float* __restrict__ z,
-                  const float* __restrict__ lam2, float* __restrict__ quad,
-                  float* __restrict__ qres, int N, int P, int d, int D, int Pb) {
-  using T = Tile<RC>;
-  constexpr int TP = T::TP;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* kit = ks + (size_t)N * TP;
-  float* red = kit + (size_t)MB * T::KST;
-  float* xt_s = red + (size_t)T::CG * TP;
-  float* xs_s = xt_s + (size_t)N * d;
-  float* mean_s = xs_s + (size_t)TP * d;
-  const int p0 = blockIdx.x * TP;
-  build_kstar<TP, false>(ks, xt_s, xs_s, nullptr, nullptr, xt, xs, inv_ls,
-                         nullptr, N, P, d, N, p0);
-  block_mean<TP>(ks, A, mean_s, N, D, -1, p0);
-  const float q = block_quad<RC>(ks, kit, red, kinv, N);  // syncs after the mean
-  const int p = threadIdx.x;
-  if (p < TP && p0 + p < P) {
-    const float* zb = z + (size_t)((p0 + p) / Pb) * D;  // this particle's bank
-    float r = 0.f;
-    for (int j = 0; j < D; ++j) {
-      const float diff = mean_s[p * D + j] - zb[j];
-      r += lam2[j] * diff * diff;
+    for (int g = 0; g < T::TY; ++g) {
+      q += red[g * TP + tid];
+      if (OBS) r += red[(T::TY + g) * TP + tid];
     }
-    quad[p0 + p] = q;
-    qres[p0 + p] = r;
+  }
+  const int p = p0 + tid;
+  if (splits > 1) {
+    // The passes are split over blocks: each writes its sums, and the last
+    // block of the particle tile to finish adds them in split order.
+    __shared__ int last;
+    if (tid < TP && p < P) {
+      partial[(size_t)(2 * blockIdx.y) * P + p] = q;
+      partial[(size_t)(2 * blockIdx.y + 1) * P + p] = r;
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(ticket + blockIdx.x, 1) == splits - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (tid == 0) ticket[blockIdx.x] = 0;  // ready for the next launch
+    q = r = 0.f;
+    if (tid < TP && p < P) {
+      for (int y = 0; y < splits; ++y) {
+        q += __ldcg(partial + (size_t)(2 * y) * P + p);
+        r += __ldcg(partial + (size_t)(2 * y + 1) * P + p);
+      }
+    }
+  }
+  if (tid < TP && p < P) {
+    if (OBS) {
+      out0[p] = q;
+      out1[p] = r;
+    } else {
+      out1[p] = q;
+    }
   }
 }
 
-// What a launcher returns when one block's star tile and staging need more
-// shared memory than the card lets a block opt into; the Python wrapper
-// turns it into a ValueError that names the bytes needed.
-constexpr int SMEM_TOO_LARGE = -1;
+// Dynamic shared-memory bytes of one block: it does not depend on N.
+template <int TP>
+size_t core_smem_bytes(int d, bool has_linear, bool obs) {
+  using T = Tile<TP>;
+  return sizeof(float) * (2 * (size_t)T::STAGE + 2 * (size_t)T::KT +
+                          (obs ? 2 : 1) * (size_t)T::TY * TP + 3 * (size_t)MB * d +
+                          2 * (size_t)d + (has_linear ? 2 : 1) * (size_t)d * TP);
+}
 
-// 0 when a block of the current device may take smem bytes of dynamic
-// shared memory, else SMEM_TOO_LARGE or the CUDA error of the query.
-int check_smem(size_t smem) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+template <int TP, int KIND>
+int launch_core(const float* xt, const float* xs, const float* inv_ls, const float* lin_w,
+                const float* A, const float* kinv, const float* z, const float* lam2,
+                float* out0, float* out1, int N, int P, int d, int Dout, int n_valid,
+                int Pb, int splits, float* partial, int* ticket, cudaStream_t stream) {
+  const size_t smem = core_smem_bytes<TP>(d, KIND == KIND_X, KIND == KIND_OBS);
+  auto kernel = posterior_core<TP, KIND>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  return smem > (size_t)optin ? SMEM_TOO_LARGE : 0;
-}
-
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  const int fits = check_smem(smem);
-  if (fits != 0) return fits;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-}
-
-template <int RC>
-int launch_posterior(const float* xt, const float* xs, const float* inv_ls,
-                     const float* lin_w, const float* A, const float* kinv,
-                     float* mean, float* quad, int N, int P, int d, int Dout,
-                     int n_valid, bool has_linear, size_t smem, cudaStream_t stream) {
-  const dim3 grid((P + Tile<RC>::TP - 1) / Tile<RC>::TP);
-  auto kernel = has_linear ? gp_posterior_kernel<RC, true> : gp_posterior_kernel<RC, false>;
-  const int err = allow_smem(kernel, smem);
-  if (err != 0) return err;
-  kernel<<<grid, NT, smem, stream>>>(xt, xs, inv_ls, lin_w, A, kinv, mean, quad,
-                                     N, P, d, Dout, n_valid);
+  const dim3 grid((P + TP - 1) / TP, splits);
+  kernel<<<grid, NT, smem, stream>>>(xt, xs, inv_ls, lin_w, A, kinv, z, lam2, out0, out1, N,
+                                     P, d, Dout, n_valid, Pb, splits, partial, ticket);
   return (int)cudaGetLastError();
 }
 
-template <int RC>
-int launch_obs(const float* xt, const float* xs, const float* inv_ls,
-               const float* A, const float* kinv, const float* z,
-               const float* lam2, float* quad, float* qres, int N, int P, int d,
-               int D, int Pb, size_t smem, cudaStream_t stream) {
-  const dim3 grid((P + Tile<RC>::TP - 1) / Tile<RC>::TP);
-  const int err = allow_smem(obs_loglik_kernel<RC>, smem);
-  if (err != 0) return err;
-  obs_loglik_kernel<RC><<<grid, NT, smem, stream>>>(xt, xs, inv_ls, A, kinv, z,
-                                                    lam2, quad, qres, N, P, d, D, Pb);
-  return (int)cudaGetLastError();
+// Particles per block when the caller leaves it to the launcher (tile 0):
+// large grids take 128, which halves the M tiles re-read from L2 per
+// particle against 64; small ones take 64, whose RC = 256 columns a pass
+// regenerate Kstar half as often.
+inline int pick_tile(int P, int tile) {
+  if (tile != 0) return tile;
+  return P >= 32768 ? 128 : 64;
+}
+
+inline int passes(int tp, int Ncol) {
+  const int rc = tp == 64 ? Tile<64>::RC : Tile<128>::RC;
+  return (Ncol + rc - 1) / rc;
+}
+
+template <int KIND>
+int dispatch(int tile, const float* xt, const float* xs, const float* inv_ls,
+             const float* lin_w, const float* A, const float* kinv, const float* z,
+             const float* lam2, float* out0, float* out1, int N, int P, int d, int Dout,
+             int n_valid, int Pb, int splits, void* partial, void* ticket,
+             cudaStream_t stream) {
+  if (splits < 1 || splits > passes(tile, N + Dout) || (splits > 1 && !(partial && ticket)))
+    return (int)cudaErrorInvalidValue;
+  switch (tile) {
+    case 64:
+      return launch_core<64, KIND>(xt, xs, inv_ls, lin_w, A, kinv, z, lam2, out0, out1, N,
+                                   P, d, Dout, n_valid, Pb, splits, (float*)partial,
+                                   (int*)ticket, stream);
+    case 128:
+      return launch_core<128, KIND>(xt, xs, inv_ls, lin_w, A, kinv, z, lam2, out0, out1, N,
+                                    P, d, Dout, n_valid, Pb, splits, (float*)partial,
+                                    (int*)ticket, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of the given shape needs.
-size_t gp_smem_bytes(int N, int d, int Dout, int has_linear, int obs) {
-  return smem_floats(N, d, Dout, has_linear != 0, obs != 0) * sizeof(float);
+// How a launch of N training rows, Dout outputs and P particles runs on a
+// card of sms SMs: plan = {particles per block, splits, particle tiles}.
+// tile 0 lets the launcher choose the particles per block (64 or 128).
+// With splits > 1 the passes over the columns of G are dealt over splits
+// blocks per particle tile, so that a small P still fills the card; the
+// caller then provides 2 x splits x P floats of partial sums and one
+// int per particle tile, zeroed before the first launch; each launch
+// leaves them zeroed again.  Returns 0, or cudaErrorInvalidValue for a
+// tile the launcher does not take.
+int gp_plan(int N, int Dout, int P, int tile, int sms, int* plan) {
+  const int tp = pick_tile(P, tile);
+  if (tp != 64 && tp != 128) return (int)cudaErrorInvalidValue;
+  const int tiles = (P + tp - 1) / tp;
+  const int want = (3 * sms + tiles - 1) / tiles;  // about three blocks per SM
+  const int np = passes(tp, N + Dout);
+  plan[0] = tp;
+  plan[1] = want < 1 ? 1 : (want < np ? want : np);
+  plan[2] = tiles;
+  return 0;
 }
 
+// mean (P, Dout) and quad (P,) of the dynamics (has_linear) or RBF
+// posterior, with the tile and splits of gp_plan.
 int gp_posterior_launch(const void* xt, const void* xs, const void* inv_ls,
                         const void* lin_w, const void* A, const void* kinv,
                         void* mean, void* quad, int N, int P, int d, int Dout,
-                        int n_valid, int has_linear, void* stream_ptr) {
+                        int n_valid, int has_linear, int tile, int splits, void* partial,
+                        void* ticket, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  const size_t smem = gp_smem_bytes(N, d, Dout, has_linear, 0);
-  auto go = rows_per_pass(N) == 256 ? launch_posterior<256> : launch_posterior<512>;
-  return go((const float*)xt, (const float*)xs, (const float*)inv_ls,
-            (const float*)lin_w, (const float*)A, (const float*)kinv, (float*)mean,
-            (float*)quad, N, P, d, Dout, n_valid, has_linear != 0, smem, stream);
+  auto go = has_linear ? dispatch<KIND_X> : dispatch<KIND_RBF>;
+  return go(tile, (const float*)xt, (const float*)xs, (const float*)inv_ls,
+            (const float*)lin_w, (const float*)A, (const float*)kinv, nullptr, nullptr,
+            (float*)mean, (float*)quad, N, P, d, Dout, n_valid, P, splits, partial, ticket,
+            stream);
 }
 
+// quad (P,) and qres (P,) of the observation weighting, P = B * Pb
+// particles bank after bank, z (B, D), with the tile and splits of gp_plan.
 int obs_loglik_launch(const void* xt, const void* xs, const void* inv_ls,
                       const void* A, const void* kinv, const void* z,
                       const void* lam2, void* quad, void* qres, int N, int P,
-                      int d, int D, int Pb, void* stream_ptr) {
+                      int d, int D, int Pb, int tile, int splits, void* partial,
+                      void* ticket, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  const size_t smem = gp_smem_bytes(N, d, D, 0, 1);
-  auto go = rows_per_pass(N) == 256 ? launch_obs<256> : launch_obs<512>;
-  return go((const float*)xt, (const float*)xs, (const float*)inv_ls,
-            (const float*)A, (const float*)kinv, (const float*)z, (const float*)lam2,
-            (float*)quad, (float*)qres, N, P, d, D, Pb, smem, stream);
+  return dispatch<KIND_OBS>(tile, (const float*)xt, (const float*)xs, (const float*)inv_ls,
+                            nullptr, (const float*)A, (const float*)kinv, (const float*)z,
+                            (const float*)lam2, (float*)quad, (float*)qres, N, P, d, D, N,
+                            Pb, splits, partial, ticket, stream);
 }
 
 }  // extern "C"

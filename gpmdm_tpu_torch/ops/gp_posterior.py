@@ -11,8 +11,10 @@ filter's per-frame cost is the GP posterior over all particles:
 Each public function has two versions:
 
 - the CUDA kernel (``csrc/gp_posterior.cu``, built by ``_build``), which
-  keeps Kstar in shared memory and writes only the outputs; the wrapper
-  takes it for tensors on the card and launches it or raises;
+  generates Kstar tile by tile as it streams Kinv and the weights through
+  shared memory, for any number of training rows, and writes only the
+  outputs; the wrapper takes it for tensors on the card and launches it
+  or raises;
 - a plain PyTorch version (``*_plain``) with the same arithmetic, taken
   for tensors on the CPU and used as the kernel's reference on the card.
 
@@ -24,14 +26,16 @@ function, so a run can show that it went through the kernels.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 #: Kernel launches per public function since the last ``reset_launches``.
 LAUNCHES = {"fused_x_posterior": 0, "fused_rbf_posterior": 0, "fused_obs_loglik": 0}
 
-#: What a launcher returns when one block's star tile does not fit in the
-#: card's shared memory (``SMEM_TOO_LARGE`` in csrc/gp_posterior.cu).
-SMEM_TOO_LARGE = -1
+#: Particles per block that the launchers take; 0 lets them choose from P.
+TILES = (0, 64, 128)
 
 
 def reset_launches() -> None:
@@ -101,22 +105,57 @@ def _check(name: str, device, **shapes) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def _raise_on_error(name: str, rc: int, smem_bytes) -> None:
-    """Raise for a launcher's non-zero return; ``smem_bytes()`` gives the
-    shared memory one block of the call's shape needs."""
-    if rc == SMEM_TOO_LARGE:
-        raise ValueError(
-            f"{name}: the fused posterior does not fit in shared memory: one block "
-            f"needs {smem_bytes()} bytes, more than this card lets a block use. The "
-            "kernel keeps the star kernel of its particle tile over all training "
-            "rows on chip; use a sparse or compressed posterior at this size"
-        )
+def _raise_on_error(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {rc}")
 
 
+def _check_tile(name: str, tile: int) -> None:
+    if tile not in TILES:
+        raise ValueError(f"{name}: tile must be one of {TILES}, got {tile}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# The partial sums and tickets of split passes, by (device, stream).  The
+# kernel sets each ticket back to 0 when it is done with it, so tickets are
+# zeroed once, when they are allocated, and every call reuses both buffers
+# (grown when a call needs more): no allocation and no memset a call.
+_SCRATCH: dict = {}
+
+
+def _scratch(dev, stream, n_partial: int, n_ticket: int):
+    partial, ticket = _SCRATCH.get((dev.index, stream), (None, None))
+    if partial is None or partial.numel() < n_partial:
+        partial = torch.empty(n_partial, dtype=torch.float32, device=dev)
+    if ticket is None or ticket.numel() < n_ticket:
+        ticket = torch.zeros(n_ticket, dtype=torch.int32, device=dev)
+    _SCRATCH[(dev.index, stream)] = partial, ticket
+    return partial, ticket
+
+
+def _plan(lib, name, N, Dout, P, tile, dev, stream):
+    """The launcher's tile and splits for this call, and the partial sums
+    and tickets that split passes need (None when unsplit)."""
+    plan = (ctypes.c_int * 3)()
+    _raise_on_error(name, lib.gp_plan(N, Dout, P, tile, _sm_count(dev.index), plan))
+    tp, splits, tiles = plan
+    if splits == 1:
+        return tp, 1, None, None
+    return (tp, splits, *_scratch(dev, stream, 2 * splits * P, tiles))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _posterior_cuda(name, Xtrain, Xstar, A, Kinv, inv_ls, lin_w, n_valid,
-                    has_linear):
+                    has_linear, tile=0, lib=None):
+    """K1 or K1' on the card; ``tile`` (see ``TILES``) and ``lib`` (a build
+    variant's library) are for measurement."""
     from ._build import library
 
     N, d = Xtrain.shape
@@ -127,21 +166,23 @@ def _posterior_cuda(name, Xtrain, Xstar, A, Kinv, inv_ls, lin_w, n_valid,
     if has_linear:
         shapes["lin_w"] = (lin_w, (d + 1,))
     _check(name, dev, **shapes)
+    _check_tile(name, tile)
     if not 0 <= n_valid <= N or N < 1:
         raise ValueError(f"{name}: need 1 <= N and 0 <= n_valid <= N, got N={N}, n_valid={n_valid}")
     mean = torch.empty(P, Dout, dtype=torch.float32, device=dev)
     quad = torch.empty(P, dtype=torch.float32, device=dev)
     if P == 0:
         return mean, quad
-    lib = library()
+    lib = library() if lib is None else lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        tp, splits, partial, ticket = _plan(lib, name, N, Dout, P, tile, dev, stream)
         rc = lib.gp_posterior_launch(
             Xtrain.data_ptr(), Xstar.data_ptr(), inv_ls.data_ptr(),
             lin_w.data_ptr() if has_linear else None, A.data_ptr(), Kinv.data_ptr(),
             mean.data_ptr(), quad.data_ptr(), N, P, d, Dout, n_valid,
-            int(has_linear), stream)
-    _raise_on_error(name, rc, lambda: lib.gp_smem_bytes(N, d, Dout, int(has_linear), 0))
+            int(has_linear), tp, splits, _ptr(partial), _ptr(ticket), stream)
+    _raise_on_error(name, rc)
     LAUNCHES[name] += 1
     return mean, quad
 
@@ -187,6 +228,12 @@ def fused_obs_loglik(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2):
     """
     if _on_cpu(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2):
         return fused_obs_loglik_plain(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2)
+    return _obs_loglik_cuda(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2)
+
+
+def _obs_loglik_cuda(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2, tile=0, lib=None):
+    """K2 on the card; ``tile`` (see ``TILES``) and ``lib`` (a build
+    variant's library) are for measurement."""
     from ._build import library
 
     name = "fused_obs_loglik"
@@ -200,19 +247,22 @@ def fused_obs_loglik(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2):
            Ay=(Ay, (N, D)), Kinv=(Kinv, (N, N)),
            inv_lengthscales=(inv_lengthscales, (d,)),
            z=(z, (B, D) if z.dim() == 2 else (D,)), lam2=(lam2, (D,)))
+    _check_tile(name, tile)
     if N < 1:
         raise ValueError(f"{name}: need at least one training row")
     quad = torch.empty(P, dtype=torch.float32, device=dev)
     qres = torch.empty(P, dtype=torch.float32, device=dev)
     if P == 0:
         return quad, qres
-    lib = library()
+    lib = library() if lib is None else lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        tp, splits, partial, ticket = _plan(lib, name, N, D, P, tile, dev, stream)
         rc = lib.obs_loglik_launch(
             Xtrain.data_ptr(), Xstar.data_ptr(), inv_lengthscales.data_ptr(),
             Ay.data_ptr(), Kinv.data_ptr(), z.data_ptr(), lam2.data_ptr(),
-            quad.data_ptr(), qres.data_ptr(), N, P, d, D, P // B, stream)
-    _raise_on_error(name, rc, lambda: lib.gp_smem_bytes(N, d, D, 0, 1))
+            quad.data_ptr(), qres.data_ptr(), N, P, d, D, P // B, tp, splits,
+            _ptr(partial), _ptr(ticket), stream)
+    _raise_on_error(name, rc)
     LAUNCHES[name] += 1
     return quad, qres

@@ -17,8 +17,6 @@ launches, so a run can show that it went through the kernel.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 #: Kernel launches since the last ``reset_launches``.
@@ -43,24 +41,17 @@ def resample_rank_plain(s: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.cumsum(counts[:, :Pb], dim=1), max=max(Pb - 1, 0))
 
 
-@functools.lru_cache(maxsize=None)
-def _max_on_chip_particles(device_index: int) -> int:
-    """Largest Pb whose counters fit in a block's shared memory on this
-    card; sets the kernel's shared-memory limit there, once per device."""
-    from ._build import library
-
-    with torch.cuda.device(device_index):
-        n = library().resample_rank_setup()
-    if n < 0:
-        raise RuntimeError(f"resample_rank: device query failed with cudaError {-n}")
-    return n
-
-
 def resample_rank(s: torch.Tensor) -> torch.Tensor:
     """(B, Pb) int64 ranks of (B, Pb) int32 ``s``: the kernel on the card,
     the plain version on the CPU."""
     if s.device.type == "cpu":
         return resample_rank_plain(s)
+    return _rank_cuda(s)
+
+
+def _rank_cuda(s: torch.Tensor, lib=None) -> torch.Tensor:
+    """The kernel on the card; ``lib`` (a build variant's library) is for
+    measurement."""
     from ._build import library
 
     name = "resample_rank"
@@ -74,16 +65,10 @@ def resample_rank(s: torch.Tensor) -> torch.Tensor:
     idx = torch.empty(B, Pb, dtype=torch.int64, device=s.device)
     if B == 0 or Pb == 0:
         return idx
-    lib = library()
-    # the counters live on chip when they fit, else in global scratch
-    scratch = None
-    if Pb > _max_on_chip_particles(s.device.index):
-        scratch = torch.empty(B * (Pb + 1), dtype=torch.int32, device=s.device)
+    lib = library() if lib is None else lib
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream(s.device).cuda_stream
-        rc = lib.resample_rank_launch(s.data_ptr(), idx.data_ptr(),
-                                      None if scratch is None else scratch.data_ptr(),
-                                      B, Pb, stream)
+        rc = lib.resample_rank_launch(s.data_ptr(), idx.data_ptr(), B, Pb, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {rc}")
     LAUNCHES[name] += 1

@@ -8,7 +8,10 @@ machine with the card, which has none:
 
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 Tolerance rtol 1e-4, atol 1e-4: both sides run in fp32 and sum in
-different orders over up to 480 terms.  The resampling rank counts
+different orders over up to 530 terms.  Past that (N up to 5,120), each
+output is held against the plain version run in float64, within the
+bound ``_fp32_bounds`` puts on any fp32 evaluation's error (2 N u times
+the sum of the terms' magnitudes).  The resampling rank counts
 integers, so kernel and plain version must agree exactly.
 """
 
@@ -87,24 +90,54 @@ def test_cuda_wrapper_rejects_bad_inputs():
         tgp.fused_rbf_posterior(t["Xt"], t["Xs"], t["A"], t["Kinv"].T, t["inv_ls"])
 
 
+def _fp32_bounds(Xt, Xs, A, Kinv, inv_ls, lin_w=None, n_valid=None, z=None, lam2=None):
+    """Elementwise bounds on any fp32 evaluation's error, in any order of
+    summation: 2 N u sum|terms| for the mean and the quad (N terms a sum,
+    plus the star kernel's own rounding), u = 2^-24, and what the mean's
+    bound does to qres."""
+    d = lambda t: t.double()  # noqa: E731
+    N = Xt.shape[0]
+    if lin_w is None:
+        ks = tgp._star_plain(d(Xt * inv_ls), d(Xs * inv_ls), N)
+    else:
+        w = d(lin_w[:-1])
+        ks = tgp._star_plain(d(Xt) * d(inv_ls), d(Xs) * d(inv_ls), n_valid, d(Xt) * w,
+                             d(Xs) * w, d(lin_w[-1]) ** 2)
+    ks = ks.abs()
+    g = 2 * N * 2.0 ** -24
+    mean_b = g * (ks.T @ d(A).abs())
+    quad_b = g * torch.sum(ks * (d(Kinv).abs() @ ks), dim=0)
+    if z is None:
+        return mean_b, quad_b
+    mean = tgp.fused_rbf_posterior_plain(*(d(t) for t in (Xt, Xs, A, Kinv, inv_ls)))[0]
+    qres_b = torch.sum(d(lam2) * (2 * (mean - d(z)).abs() + mean_b) * mean_b, dim=1)
+    return quad_b, qres_b
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,fits", [(236, True), (480, True), (1100, True), (2048, False)])
-def test_cuda_wrappers_refuse_only_star_tiles_that_do_not_fit(N, fits):
+@pytest.mark.parametrize("N", [236, 1100, 2048, 5120])
+def test_cuda_wrappers_refuse_only_star_tiles_that_do_not_fit(N):
+    """No star tile is held any more, so both wrappers take every N, up to
+    the n5120 asset's Ny, and match their plain versions run in float64:
+    each output within the fp32 summation bound of ``_fp32_bounds``."""
     dev = _cuda_or_skip()
     x = _inputs(N, 40, 2, seed=9)
     t = {k: _t(v, dev) for k, v in x.items()}
+    base = [t[k] for k in ("Xt", "Xs", "A", "Kinv", "inv_ls")]
     calls = [
-        lambda: tgp.fused_x_posterior(*(t[k] for k in ("Xt", "Xs", "A", "Kinv", "inv_ls",
-                                                      "lin_w")), N),
-        lambda: tgp.fused_obs_loglik(*(t[k] for k in ("Xt", "Xs", "A", "Kinv", "inv_ls",
-                                                     "z", "lam2"))),
+        (tgp.fused_x_posterior, tgp.fused_x_posterior_plain, base + [t["lin_w"], N - 5],
+         dict(lin_w=t["lin_w"], n_valid=N - 5)),
+        (tgp.fused_obs_loglik, tgp.fused_obs_loglik_plain, base + [t["z"], t["lam2"]],
+         dict(z=t["z"], lam2=t["lam2"])),
     ]
-    for call in calls:
-        if fits:
-            assert all(torch.isfinite(o).all() for o in call())
-        else:
-            with pytest.raises(ValueError, match="shared memory"):
-                call()
+    for kernel, plain, args, extra in calls:
+        got = kernel(*args)
+        ref64 = plain(*[a.double() if torch.is_tensor(a) else a for a in args])
+        bounds = _fp32_bounds(*base, **extra)
+        torch.cuda.synchronize()
+        for g, r64, b in zip(got, ref64, bounds):
+            assert torch.isfinite(g).all()
+            assert torch.all((g.double() - r64).abs() <= b + 1e-6)
 
 
 def _systematic_s(rng, B, Pb, alpha=0.3):
@@ -116,7 +149,8 @@ def _systematic_s(rng, B, Pb, alpha=0.3):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,Pb", [(1, 10_000), (12, 10_000), (64, 1000), (1, 100_000)])
+@pytest.mark.parametrize("B,Pb", [(1, 10_000), (12, 10_000), (64, 1000), (1, 100_000),
+                                  (3, 50_001)])
 @pytest.mark.parametrize("order", ["sorted", "unsorted"])
 def test_cuda_resample_rank_matches_plain(B, Pb, order):
     dev = _cuda_or_skip()
@@ -153,3 +187,65 @@ def test_cuda_banked_obs_loglik_matches_plain():
         one = tgp.fused_obs_loglik(*args[:1], t["Xs"][sl].contiguous(), *args[2:5], z[b],
                                    t["lam2"])
         torch.testing.assert_close(got[1][sl], one[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_take_unaligned_views():
+    """Contiguous views whose data start off a 16-byte boundary (N and Pb
+    multiples of 4, so only the base pointer is off) take the kernels'
+    scalar loads and match the plain versions."""
+    dev = _cuda_or_skip()
+    N, P, d = 128, 300, 2
+    x = _inputs(N, P, d, seed=12)
+    t = {k: _t(v, dev) for k, v in x.items()}
+    kinv = torch.empty(N * N + 1, device=dev)[1:].view(N, N)
+    kinv.copy_(t["Kinv"])
+    assert kinv.is_contiguous() and kinv.data_ptr() % 16
+    t["Kinv"] = kinv
+    pairs = [
+        (tgp.fused_rbf_posterior, tgp.fused_rbf_posterior_plain, ("Xt", "Xs", "A", "Kinv", "inv_ls"), ()),
+        (tgp.fused_x_posterior, tgp.fused_x_posterior_plain,
+         ("Xt", "Xs", "A", "Kinv", "inv_ls", "lin_w"), (N,)),
+        (tgp.fused_obs_loglik, tgp.fused_obs_loglik_plain,
+         ("Xt", "Xs", "A", "Kinv", "inv_ls", "z", "lam2"), ()),
+    ]
+    for kernel, plain, keys, extra in pairs:
+        args = [t[k] for k in keys] + list(extra)
+        got = kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    B, Pb = 2, 4096
+    s = torch.as_tensor(_systematic_s(np.random.default_rng(13), B, Pb), device=dev)
+    s_view = torch.empty(B * Pb + 1, dtype=torch.int32, device=dev)[1:].view(B, Pb)
+    s_view.copy_(s)
+    assert s_view.is_contiguous() and s_view.data_ptr() % 16
+    assert torch.equal(rs.resample_rank(s_view), rs.resample_rank_plain(s))
+
+
+@pytest.mark.gpu
+def test_cuda_split_passes_repeat_exactly():
+    """At 480 rows and 10,000 particles the launcher splits the passes over
+    blocks, whose tickets the kernel sets back to 0: repeated calls reuse
+    them and give the same bits."""
+    dev = _cuda_or_skip()
+    from gpmdm_tpu_torch.ops._build import library
+
+    N, P, d = 480, 10_000, 2
+    x = _inputs(N, P, d, seed=14)
+    t = {k: _t(v, dev) for k, v in x.items()}
+    dev = t["Xs"].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert tgp._plan(library(), "fused_obs_loglik", N, D_OUT, P, 0, dev, stream)[1] > 1
+    calls = [
+        (tgp.fused_obs_loglik, [t[k] for k in ("Xt", "Xs", "A", "Kinv", "inv_ls", "z", "lam2")]),
+        (tgp.fused_x_posterior, [t[k] for k in ("Xt", "Xs", "A", "Kinv", "inv_ls", "lin_w")]
+         + [N]),
+    ]
+    for kernel, args in calls:
+        first = kernel(*args)
+        for _ in range(4):
+            again = kernel(*args)
+            for a, b in zip(first, again):
+                assert torch.equal(a, b)

@@ -4,11 +4,14 @@ few CUDA features they use, against float64 and numpy references.
 ``gpmdm_tpu_torch/ops/csrc/gp_posterior.cu`` and ``resample_rank.cu`` are
 compiled with g++ against stand-ins for the CUDA runtime: one
 ``std::thread`` per CUDA thread, a barrier for ``__syncthreads``, static
-buffers for the dynamic shared memory and ``__atomic_fetch_add`` for
-``atomicAdd``.  That checks the kernels' indexing, masking, tiling and staging
-where there is no card.  It says nothing about speed or about what nvcc
-accepts: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` check the
-kernels on the card.  Skips when no C++20 compiler is present.
+buffers for the shared memory, ``__atomic_fetch_add`` for ``atomicAdd``,
+and warp shuffles and ballots through a per-warp barrier and an exchange
+buffer.  The sources' asynchronous copies are plain copies off the card
+(their own ``copy_async``/``copy_wait_all`` wrappers).  That checks the
+kernels' indexing, masking, tiling and staging where there is no card.  It
+says nothing about speed or about what nvcc accepts:
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` check the kernels on
+the card.  Skips when no C++20 compiler is present.
 
 Tolerance: 1e-4 relative to (1 + |reference|); the kernels sum in fp32.
 The resampling rank counts integers, so it must equal numpy's exactly.
@@ -34,53 +37,96 @@ STUB = r"""
 #define __global__
 #define __device__
 #define __host__
-#define __shared__
+#define __shared__ static
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 struct uint3_ { unsigned x, y, z; };
 extern thread_local uint3_ threadIdx;
-extern uint3_ blockIdx;
+extern thread_local uint3_ blockIdx;
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 typedef struct CUstream_st* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
-inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 232448; return cudaSuccess; }  // H100
 extern std::barrier<>* g_barrier;
+extern std::barrier<>* g_warp_barrier[32];
+extern int g_exchange[32][32];
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
 template <typename T> cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline void __threadfence() {}
+template <typename T> T __ldcg(const T* p) { return *p; }
+// every lane of the warp posts a value, then reads lane src's
+inline int warp_exchange(int v, int src) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_exchange[w][l] = v;
+  g_warp_barrier[w]->arrive_and_wait();
+  const int r = g_exchange[w][src & 31];
+  g_warp_barrier[w]->arrive_and_wait();
+  return r;
+}
+inline int __shfl_sync(unsigned, int v, int src) { return warp_exchange(v, src); }
+inline int __shfl_up_sync(unsigned, int v, unsigned delta) {
+  const int l = threadIdx.x % 32;
+  return warp_exchange(v, l >= (int)delta ? l - (int)delta : l);
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  g_exchange[w][l] = pred != 0;
+  g_warp_barrier[w]->arrive_and_wait();
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i) m |= (unsigned)g_exchange[w][i] << i;
+  g_warp_barrier[w]->arrive_and_wait();
+  return m;
+}
 using std::min;
 """
 
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
+#include <memory>
 #include <random>
 #include <string>
 #include <thread>
 #include <vector>
 #include "cuda_runtime.h"
 thread_local uint3_ threadIdx;
-uint3_ blockIdx;
+thread_local uint3_ blockIdx;
 std::barrier<>* g_barrier;
+std::barrier<>* g_warp_barrier[32];
+int g_exchange[32][32];
 alignas(16) float smem[232448 / 4];
-alignas(16) int rank_smem[232448 / 4];
 #include "kernels.cpp"
 #include "rank.cpp"
 
-template <typename F> void run_blocks(int nblocks, F body, int nthreads = NT) {
-  for (int b = 0; b < nblocks; ++b) {
-    blockIdx.x = b;
-    std::barrier<> bar(nthreads);
-    g_barrier = &bar;
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nthreads; ++t) ts.emplace_back([&, t] { threadIdx.x = t; body(); });
-    for (auto& th : ts) th.join();
+// One std::thread per CUDA thread of a block; the threads walk the grid's
+// blocks in order, with a barrier between blocks.
+template <typename F> void run_grid(int gx, int gy, F body, int nthreads) {
+  std::barrier<> bar(nthreads);
+  g_barrier = &bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  for (int w = 0; w < nthreads / 32; ++w) {
+    warps.emplace_back(new std::barrier<>(32));
+    g_warp_barrier[w] = warps.back().get();
   }
+  std::vector<std::thread> ts;
+  for (int t = 0; t < nthreads; ++t)
+    ts.emplace_back([&, t] {
+      threadIdx.x = t;
+      for (int by = 0; by < gy; ++by)
+        for (int bx = 0; bx < gx; ++bx) {
+          blockIdx.x = bx;
+          blockIdx.y = by;
+          body();
+          bar.arrive_and_wait();
+        }
+    });
+  for (auto& th : ts) th.join();
 }
 
 template <typename T> std::vector<T> read_file(const char* path, size_t n) {
@@ -102,20 +148,51 @@ int run_rank(char** argv) {
   const int B = atoi(argv[4]), Pb = atoi(argv[5]);
   auto s = read_file<int>(argv[2], (size_t)B * Pb);
   std::vector<long long> idx((size_t)B * Pb, -7);
-  const int on_chip = Pb <= resample_rank_setup();
-  std::vector<int> scratch(on_chip ? 0 : (size_t)B * (Pb + 1), -7);
-  int* counters = on_chip ? nullptr : scratch.data();
-  run_blocks(B, [&] { resample_rank_kernel(s.data(), idx.data(), counters, Pb); }, RANK_NT);
+  const int blocks = (Pb + RANK_RANGE - 1) / RANK_RANGE;
+  run_grid(blocks, B, [&] { resample_rank_kernel(s.data(), idx.data(), Pb); }, RANK_NT);
   write_file(argv[3], idx);
-  printf("on_chip %d\n", on_chip);
+  printf("blocks_per_bank %d\n", blocks);
   return 0;
 }
 
-// obs in.bin out.bin N P d D B: xt, xs, inv_ls, A, Kinv, z (B, D), lam2 in
+// The kernel of kind K over P particles as gp_plan lays it out for a card
+// of sms SMs (0: one block per particle tile), with the harness's dynamic
+// shared memory cut to what the launcher asks for: a canary past that must
+// survive.  Returns the bytes asked for, or -1 if the canary died.
+template <int TP, int K>
+long run_core(int splits, int tiles, const float* xt, const float* xs, const float* ils,
+              const float* lw, const float* A, const float* Kv, const float* z,
+              const float* l2, float* o1, float* o2, int N, int P, int d, int D, int nv, int Pb) {
+  const size_t bytes = core_smem_bytes<TP>(d, K == KIND_X, K == KIND_OBS);
+  const size_t n = bytes / sizeof(float), cap = sizeof(smem) / sizeof(float);
+  for (size_t i = n; i < cap; ++i) smem[i] = -12345.f;
+  std::vector<float> partial((size_t)2 * splits * P, -7.f);
+  std::vector<int> ticket(tiles, 0);
+  run_grid(tiles, splits, [&] { posterior_core<TP, K>(xt, xs, ils, lw, A, Kv, z, l2, o1, o2, N, P, d, D, nv, Pb, splits, partial.data(), ticket.data()); }, NT);
+  for (size_t i = n; i < cap; ++i)
+    if (smem[i] != -12345.f) return -1;
+  for (int c : ticket)  // the last block of each tile sets its ticket back to 0
+    if (c != 0) return -1;
+  return (long)bytes;
+}
+
+long run_any(bool lin, bool obs, int tile, int sms, const float* xt, const float* xs,
+             const float* ils, const float* lw, const float* A, const float* Kv, const float* z,
+             const float* l2, float* o1, float* o2, int N, int P, int d, int D, int nv, int Pb) {
+  int plan[3];
+  if (gp_plan(N, D, P, tile, sms, plan) != 0) return -1;
+  printf("tile %d splits %d\n", plan[0], plan[1]);
+#define GO(TP, K) run_core<TP, K>(plan[1], plan[2], xt, xs, ils, lw, A, Kv, z, l2, o1, o2, N, P, d, D, nv, Pb)
+  if (plan[0] == 64) return obs ? GO(64, KIND_OBS) : lin ? GO(64, KIND_X) : GO(64, KIND_RBF);
+  return obs ? GO(128, KIND_OBS) : lin ? GO(128, KIND_X) : GO(128, KIND_RBF);
+#undef GO
+}
+
+// obs in.bin out.bin N P d D B tile sms: xt, xs, inv_ls, A, Kinv, z (B, D), lam2 in
 // (float32, in that order), quad and qres out
 int run_obs_file(char** argv) {
   const int N = atoi(argv[4]), P = atoi(argv[5]), d = atoi(argv[6]), D = atoi(argv[7]),
-            B = atoi(argv[8]);
+            B = atoi(argv[8]), tile = atoi(argv[9]), sms = atoi(argv[10]);
   const size_t sizes[] = {(size_t)N * d, (size_t)P * d, (size_t)d, (size_t)N * D,
                           (size_t)N * N, (size_t)B * D, (size_t)D};
   size_t total = 0;
@@ -125,38 +202,24 @@ int run_obs_file(char** argv) {
   size_t off = 0;
   for (int k = 0; k < 7; ++k) { ptr[k] = in.data() + off; off += sizes[k]; }
   std::vector<float> quad(P, -7.f), qres(P, -7.f);
-  const int nb = (P + tile_p(N) - 1) / tile_p(N);
-  if (rows_per_pass(N) == 256)
-    run_blocks(nb, [&] { obs_loglik_kernel<256>(ptr[0], ptr[1], ptr[2], ptr[3], ptr[4], ptr[5], ptr[6], quad.data(), qres.data(), N, P, d, D, P / B); });
-  else
-    run_blocks(nb, [&] { obs_loglik_kernel<512>(ptr[0], ptr[1], ptr[2], ptr[3], ptr[4], ptr[5], ptr[6], quad.data(), qres.data(), N, P, d, D, P / B); });
+  if (run_any(false, true, tile, sms, ptr[0], ptr[1], ptr[2], nullptr, ptr[3], ptr[4], ptr[5], ptr[6],
+              quad.data(), qres.data(), N, P, d, D, N, P / B) < 0) return 3;
   quad.insert(quad.end(), qres.begin(), qres.end());
   write_file(argv[3], quad);
   return 0;
 }
 
-template <int RC> void launch(bool lin, bool obs, const float* xt, const float* xs,
-    const float* ils, const float* lw, const float* A, const float* K, const float* z,
-    const float* l2, float* o1, float* o2, int N, int P, int d, int D, int nv) {
-  const int nb = (P + Tile<RC>::TP - 1) / Tile<RC>::TP;
-  if (obs) run_blocks(nb, [&] { obs_loglik_kernel<RC>(xt, xs, ils, A, K, z, l2, o1, o2, N, P, d, D, P); });
-  else if (lin) run_blocks(nb, [&] { gp_posterior_kernel<RC, true>(xt, xs, ils, lw, A, K, o1, o2, N, P, d, D, nv); });
-  else run_blocks(nb, [&] { gp_posterior_kernel<RC, false>(xt, xs, ils, lw, A, K, o1, o2, N, P, d, D, nv); });
-}
-
+// N P d D n_valid linear obs tile sms: seeded inputs, float64 reference
 int main(int argc, char** argv) {
   if (std::string(argv[1]) == "rank") return run_rank(argv);
   if (std::string(argv[1]) == "obs") return run_obs_file(argv);
-  if (std::string(argv[1]) == "fits") {  // fits N d Dout has_linear obs
-    const int N = atoi(argv[2]), d = atoi(argv[3]), Dout = atoi(argv[4]);
-    printf("%d\n", check_smem(gp_smem_bytes(N, d, Dout, atoi(argv[5]), atoi(argv[6]))));
-    return 0;
-  }
   const int N = atoi(argv[1]), P = atoi(argv[2]), d = atoi(argv[3]), D = atoi(argv[4]),
-            nv = atoi(argv[5]), lin = atoi(argv[6]), obs = atoi(argv[7]);
+            nv = atoi(argv[5]), lin = atoi(argv[6]), obs = atoi(argv[7]), tile = atoi(argv[8]),
+            sms = atoi(argv[9]);
   std::mt19937 rng(N * 131 + P);
   std::normal_distribution<float> nd;
-  std::vector<float> xt(N * d), xs(P * d), A(N * D), K(N * N), ils(d), lw(d + 1), z(D), l2(D);
+  std::vector<float> xt((size_t)N * d), xs((size_t)P * d), A((size_t)N * D), K((size_t)N * N),
+      ils(d), lw(d + 1), z(D), l2(D);
   for (auto& v : xt) v = nd(rng);
   for (auto& v : xs) v = nd(rng);
   for (auto& v : A) v = nd(rng);
@@ -165,7 +228,7 @@ int main(int argc, char** argv) {
   for (auto& v : lw) v = std::exp(0.3f * nd(rng));
   for (auto& v : z) v = nd(rng);
   for (auto& v : l2) v = std::exp(nd(rng));
-  std::vector<double> ks(N * P), mean(P * D, 0), quad(P, 0), qres(P, 0);
+  std::vector<double> ks((size_t)N * P), mean((size_t)P * D, 0), quad(P, 0), qres(P, 0);
   for (int i = 0; i < N; ++i)
     for (int p = 0; p < P; ++p) {
       double sq = 0, l = 0;
@@ -174,15 +237,15 @@ int main(int argc, char** argv) {
         sq += df * df;
         l += (double)(xt[i * d + k] * lw[k]) * (double)(xs[p * d + k] * lw[k]);
       }
-      ks[i * P + p] = i < nv ? std::exp(-sq) + (lin ? l + (double)lw[d] * lw[d] : 0.0) : 0.0;
+      ks[(size_t)i * P + p] = i < nv ? std::exp(-sq) + (lin ? l + (double)lw[d] * lw[d] : 0.0) : 0.0;
     }
   for (int p = 0; p < P; ++p) {
     for (int j = 0; j < D; ++j)
-      for (int i = 0; i < N; ++i) mean[p * D + j] += ks[i * P + p] * A[i * D + j];
+      for (int i = 0; i < N; ++i) mean[p * D + j] += ks[(size_t)i * P + p] * A[(size_t)i * D + j];
     for (int i = 0; i < N; ++i) {
       double g = 0;
-      for (int m = 0; m < N; ++m) g += K[i * N + m] * ks[m * P + p];
-      quad[p] += ks[i * P + p] * g;
+      for (int m = 0; m < N; ++m) g += K[(size_t)i * N + m] * ks[(size_t)m * P + p];
+      quad[p] += ks[(size_t)i * P + p] * g;
     }
     for (int j = 0; j < D; ++j) {
       const double df = mean[p * D + j] - z[j];
@@ -190,10 +253,9 @@ int main(int argc, char** argv) {
     }
   }
   std::vector<float> o1(obs ? P : P * D, -7.f), o2(P, -7.f);
-  if (rows_per_pass(N) == 256)
-    launch<256>(lin, obs, xt.data(), xs.data(), ils.data(), lw.data(), A.data(), K.data(), z.data(), l2.data(), o1.data(), o2.data(), N, P, d, D, nv);
-  else
-    launch<512>(lin, obs, xt.data(), xs.data(), ils.data(), lw.data(), A.data(), K.data(), z.data(), l2.data(), o1.data(), o2.data(), N, P, d, D, nv);
+  const long bytes = run_any(lin, obs, tile, sms, xt.data(), xs.data(), ils.data(), lw.data(), A.data(),
+                             K.data(), z.data(), l2.data(), o1.data(), o2.data(), N, P, d, D, nv, P);
+  if (bytes < 0) { printf("shared memory written past the launcher's request, or a ticket left wrong\n"); return 3; }
   double err = 0;
   auto upd = [&](float got, double want) { err = std::max(err, std::abs(got - want) / (1 + std::abs(want))); };
   if (obs) {
@@ -202,7 +264,7 @@ int main(int argc, char** argv) {
     for (int i = 0; i < P * D; ++i) upd(o1[i], mean[i]);
     for (int p = 0; p < P; ++p) upd(o2[p], quad[p]);
   }
-  printf("max relative error %.3e\n", err);
+  printf("smem_bytes %ld\nmax relative error %.3e\n", bytes, err);
   return err < 1e-4 ? 0 : 1;
 }
 """
@@ -232,35 +294,69 @@ def emulator(tmp_path_factory):
 @pytest.mark.parametrize("N,P,d,D,n_valid,linear,obs", [
     (37, 50, 2, 5, 30, 1, 0),      # K1, masked rows, ragged particle tile
     (236, 130, 2, 2, 236, 1, 0),   # K1 at the bench asset's n_max
-    (300, 70, 2, 2, 290, 1, 0),    # K1 in 512-row passes, masked rows
-    (256, 64, 2, 5, 256, 0, 1),    # K2 at the last N of 256-row passes
-    (300, 70, 3, 5, 300, 0, 0),    # K1', one 512-row pass
+    (300, 70, 2, 2, 290, 1, 0),    # K1, masked rows, a partial last ring stage
+    (256, 64, 2, 5, 256, 0, 1),    # K2, N a multiple of the ring's rows
+    (300, 70, 3, 5, 300, 0, 0),    # K1', one 512-column pass
     (530, 40, 2, 7, 530, 0, 0),    # K1', two passes
-    (300, 40, 2, 45, 300, 0, 0),   # K1' with more outputs than one mean pass takes
+    (300, 40, 2, 45, 300, 0, 0),   # K1' with outputs in two warps' columns
     (300, 70, 3, 5, 300, 0, 1),    # K2
     (530, 40, 2, 35, 530, 0, 1),   # K2, two passes, the bench asset's D
-    (200, 65, 2, 6, 200, 0, 1),    # K2 with 64-particle blocks
-    (300, 40, 2, 45, 300, 0, 1),   # K2 with more outputs than one mean pass takes
+    (200, 65, 2, 6, 200, 0, 1),    # K2, three particle tiles
+    (300, 40, 2, 45, 300, 0, 1),   # K2 with outputs in two warps' columns
+    (1500, 40, 2, 35, 1500, 0, 1),  # K2 past the old shared-memory row cap
+    (1501, 20, 3, 3, 1490, 1, 0),   # K1 past it: unaligned Kinv rows, masked rows
+    (90, 40, 5, 3, 85, 1, 0),       # K1 with d past the register path
+    (70, 30, 6, 4, 70, 0, 1),       # K2 with d past the register path
 ])
 def test_cuda_source_under_cpu_emulation(emulator, N, P, d, D, n_valid, linear, obs):
-    proc = subprocess.run([str(emulator), *map(str, (N, P, d, D, n_valid, linear, obs))],
+    proc = subprocess.run([str(emulator), *map(str, (N, P, d, D, n_valid, linear, obs, 0, 0))],
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("N,d,Dout,has_linear,obs,fits", [
-    (236, 2, 2, 1, 0, True),     # K1 at the bench asset's n_max
-    (480, 2, 35, 0, 0, True),    # K1' at its Ny
-    (480, 2, 35, 0, 1, True),    # K2
-    (1100, 2, 35, 0, 1, True),
-    (2048, 2, 35, 0, 1, False),  # the star tile needs more than an H100 block has
+@pytest.mark.parametrize("tile,sms", [(64, 0), (128, 0), (64, 132), (128, 132)])
+@pytest.mark.parametrize("N,P,d,D,n_valid,linear,obs", [
+    (300, 150, 2, 2, 290, 1, 0),   # K1, masked rows, ragged particle tile
+    (530, 140, 2, 35, 530, 0, 1),  # K2, the bench asset's D
+    (300, 70, 3, 45, 300, 0, 0),   # K1'
+])
+def test_cuda_source_tiles_under_cpu_emulation(emulator, N, P, d, D, n_valid, linear, obs,
+                                               tile, sms):
+    """Both particle tiles, each with one block per particle tile and with
+    its passes split over blocks as on a 132-SM card (the last block of a
+    tile adds the splits' sums and sets the tile's ticket back to 0)."""
+    proc = subprocess.run([str(emulator),
+                           *map(str, (N, P, d, D, n_valid, linear, obs, tile, sms))],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    splits = int(re.search(r"splits (\d+)", proc.stdout)[1])
+    assert (splits > 1) == (sms > 0)
+
+
+def _smem_bytes(emulator, N, d, Dout, has_linear, obs):
+    """Run one kernel at N training rows and 8 particles; the shared memory
+    that its launcher asks for (the run fails if the kernel writes past it
+    or misses the float64 reference)."""
+    proc = subprocess.run([str(emulator), *map(str, (N, 8, d, Dout, N, has_linear, obs, 0, 0))],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return int(re.search(r"smem_bytes (\d+)", proc.stdout)[1])
+
+
+@pytest.mark.parametrize("N,d,Dout,has_linear,obs", [
+    (236, 2, 2, 1, 0),     # K1 at the bench asset's n_max
+    (480, 2, 35, 0, 0),    # K1' at its Ny
+    (480, 2, 35, 0, 1),    # K2
+    (2048, 2, 35, 0, 1),   # K2 at the n2048 asset's Ny, past the old cap
+    (5120, 2, 35, 0, 1),   # K2 at the n5120 asset's Ny
 ])
 def test_launchers_refuse_only_star_tiles_that_do_not_fit(emulator, N, d, Dout, has_linear,
-                                                          obs, fits):
-    proc = subprocess.run([str(emulator), "fits", *map(str, (N, d, Dout, has_linear, obs))],
-                          capture_output=True, text=True, timeout=60)
-    assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout) == (0 if fits else -1)
+                                                          obs):
+    """No star tile is held any more, so no N is refused: a block's shared
+    memory is the same at N as at 8 training rows, and the kernel stays
+    inside it and matches float64."""
+    assert _smem_bytes(emulator, N, d, Dout, has_linear, obs) == _smem_bytes(
+        emulator, 8, d, Dout, has_linear, obs)
 
 
 def _run_files(emulator, tmp_path, mode, inputs, out_dtype, args):
@@ -289,10 +385,11 @@ def _systematic_s(rng, B, Pb, alpha):
 
 @pytest.mark.parametrize("B,Pb,kind", [
     (3, 50, "sorted"),        # fewer particles than threads
-    (2, 3000, "sorted"),      # several particles per thread
+    (2, 3000, "sorted"),      # several particles per thread, two blocks a bank
     (2, 3000, "unsorted"),
     (3, 50, "extremes"),      # only 0 and Pb, and one long run
-    (1, 60000, "sorted"),     # counters in global scratch, not shared memory
+    (1, 60000, "sorted"),     # one bank over several blocks
+    (1, 30000, "low"),        # every value below the later blocks' ranges
 ])
 def test_resample_rank_under_cpu_emulation(emulator, tmp_path, B, Pb, kind):
     rng = np.random.default_rng(B * 1000 + Pb)
@@ -302,15 +399,22 @@ def test_resample_rank_under_cpu_emulation(emulator, tmp_path, B, Pb, kind):
     elif kind == "extremes":
         s = np.where(rng.random((B, Pb)) < 0.5, 0, Pb).astype(np.int32)
         s[0] = Pb // 2
+    elif kind == "low":
+        s = np.sort(rng.integers(0, Pb // 8, size=(B, Pb)), axis=1).astype(np.int32)
     idx, out = _run_files(emulator, tmp_path, "rank", [s], np.int64, (B, Pb))
-    assert ("on_chip 0" in out) == (Pb > 50000)
+    blocks = int(re.search(r"blocks_per_bank (\d+)", out)[1])
+    assert (blocks > 1) == (Pb >= 3000)
     np.testing.assert_array_equal(idx.reshape(B, Pb), _rank_numpy(s))
 
 
+# (particles per block, SMs of the card laid out for), by case
+BANKED_TILES = {300: (64, 132), 200: (64, 0), 37: (128, 0)}
+
+
 @pytest.mark.parametrize("N,B,Pb,d,D", [
-    (300, 3, 50, 2, 5),    # 32-particle tiles: tiles straddle banks
+    (300, 3, 50, 2, 5),    # tiles straddle banks, passes split over two blocks
     (200, 3, 50, 2, 6),    # 64-particle tiles
-    (37, 4, 25, 2, 5),     # one tile spans several whole banks
+    (37, 4, 25, 2, 5),     # one 128-particle tile spans several whole banks
 ])
 def test_banked_obs_loglik_under_cpu_emulation(emulator, tmp_path, N, B, Pb, d, D):
     rng = np.random.default_rng(N + B + Pb)
@@ -323,7 +427,7 @@ def test_banked_obs_loglik_under_cpu_emulation(emulator, tmp_path, N, B, Pb, d, 
     z = rng.normal(size=(B, D)).astype(f32)
     lam2 = np.exp(rng.normal(size=D)).astype(f32)
     got, _ = _run_files(emulator, tmp_path, "obs", [xt, xs, inv_ls, A, Kinv, z, lam2],
-                        np.float32, (N, P, d, D, B))
+                        np.float32, (N, P, d, D, B, *BANKED_TILES[N]))
     a, b = (xt * inv_ls).astype(np.float64), (xs * inv_ls).astype(np.float64)
     ks = np.exp(-np.sum((a[:, None, :] - b[None, :, :]) ** 2, axis=2))
     mean = ks.T @ A.astype(np.float64)

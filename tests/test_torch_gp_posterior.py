@@ -110,10 +110,15 @@ def test_cpu_wrappers_count_no_launches():
 
 
 def test_launcher_codes_become_clear_errors():
-    """A launcher's SMEM_TOO_LARGE becomes a ValueError that names the bytes
-    one block needs; any other non-zero code is a CUDA error."""
-    tgp._raise_on_error("fused_obs_loglik", 0, lambda: 1 / 0)
-    with pytest.raises(ValueError, match="233472 bytes"):
-        tgp._raise_on_error("fused_obs_loglik", tgp.SMEM_TOO_LARGE, lambda: 233472)
+    """A launcher's 0 passes; any other code is a CUDA error (the kernels
+    no longer refuse any number of training rows); a tile outside
+    ``TILES`` is refused before any launch."""
+    tgp._raise_on_error("fused_obs_loglik", 0)
     with pytest.raises(RuntimeError, match="cudaError 700"):
-        tgp._raise_on_error("fused_x_posterior", 700, lambda: 0)
+        tgp._raise_on_error("fused_x_posterior", 700)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        tgp._raise_on_error("fused_obs_loglik", 1)
+    for tile in tgp.TILES:
+        tgp._check_tile("fused_obs_loglik", tile)
+    with pytest.raises(ValueError, match="tile must be one of"):
+        tgp._check_tile("fused_obs_loglik", 48)
