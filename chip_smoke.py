@@ -10,12 +10,15 @@ Phases, each printing one JSON line on stdout:
              exits non-zero at once when CUDA is not available.
 2. build   - builds the CUDA kernels from ops/csrc with nvcc (its
              ``-Xptxas -v`` report goes to stderr).
-3. kernels - each posterior kernel (K1 fused_x_posterior, K1'
-             fused_rbf_posterior, K2 fused_obs_loglik) at the main path's
+3. kernels - each posterior kernel (K1 fused_x_posterior over all C
+             classes in one launch, as the filter calls it; K1'
+             fused_rbf_posterior; K2 fused_obs_loglik) at the main path's
              shapes from bench_assets/bench_model.npz with 10,000
-             particles, and K1 and K2 again on banks of 12 x 10,000 and
-             64 x 1,000 particles (K2 with one observation per bank), against
-             its plain PyTorch version run in float64 on the card, twice:
+             particles, K1 and K2 again on banks of 12 x 10,000 and
+             64 x 1,000 particles (K2 with one observation per bank), and K1
+             at the d4 and c8 assets' widths (their own classes and initial
+             clouds at 10,000 particles), against its plain PyTorch version
+             run in float64 on the card, twice:
              - on the path's own inputs, where each output's max error
                must be <= 4 x the plain fp32 version's error against the
                same float64 result + 1e-6.  The fp32-deployed dynamics
@@ -27,9 +30,13 @@ Phases, each printing one JSON line on stdout:
                error must be <= 1e-4 x its median magnitude in float64.
              Times: device time of one call on the path's inputs, median of
              20, from CUDA events; K1 and K2 also at each forced particle
-             tile (tiles_ms), and K2 beside its gemm yardstick (gemm_ms:
-             torch.matmul of the stacked [Kinv; Ay^T] by a precomputed
-             Kstar, TF32 off, which the port never calls).
+             tile (tiles_ms), K1 also on the streamed core (streamed_ms),
+             and K2 beside its gemm yardstick (gemm_ms: torch.matmul of
+             the stacked [Kinv; Ay^T] by a precomputed Kstar, TF32 off,
+             which the port never calls).  Each K1 entry names the design
+             its launch took: "one_pass" (x_onepass, the star tile
+             generated once, while N + Dout <= 256: every asset's path) or
+             "streamed" (the streamed core, past it).
              K3 resample_rank at (banks, particles) = (1, 10,000),
              (12, 10,000), (64, 1,000) and (1, 100,000), on s from the
              weights of a real frame of the filter and from seeded
@@ -38,34 +45,36 @@ Phases, each printing one JSON line on stdout:
              real frame's s, sorted first (the card's fp32 cumsum can
              leave s a step out of order; the count does not care).
    large_n - K2 at Ny = 2,048 (bench_model_n2048.npz) and 5,120
-             (bench_model_n5120.npz), and K1 at n5120's 2,528 dynamics rows,
-             each at P = 10,000 on that asset's initial cloud and on
-             conditioned inputs, to the same two limits; the assets are
-             deployed exact.
+             (bench_model_n5120.npz), and K1 at n5120's 2,528 dynamics rows
+             (the streamed core), each at P = 10,000 on that asset's
+             initial cloud and on conditioned inputs, to the same two
+             limits; the assets are deployed exact.
 4. path    - pf_init + pf_scan, P = 10,000, over the 1000-frame stream of
              bench.py (seed 0); the kernel launch counters must rise by
-             exactly 1000 x C (K1), 1000 (K2) and 1000 (K3); frames/s is
-             the best of 4 runs.
+             exactly 1000 (K1, all classes in one launch), 1000 (K2) and
+             1000 (K3); frames/s is the best of 4 runs.
 5. guard   - evaluate_pf on the 12 held-out trials of bench.py (6 per
              class, seed 0, burn-in 5, P = 10,000); fails below 0.90 frame
              accuracy.
 6. banked_guard - evaluate_pf_banked on the same 12 trials, one bank of
              10,000 particles per trial, padded to 64 frames; fails below
              0.90 frame accuracy; the launch counters must rise by exactly
-             64 x (C + 2) in all (64 x C for K1, 64 for K2, 64 for K3).
+             64 for each of K1, K2 and K3.
              Aggregate frames/s counts the trials' own frames (720), not
              the padding (padded_agg_fps counts 12 x 64).
 7. fleet   - pf_scan_bank over 64 banks x 1,000 particles x 64 frames,
              each bank streaming the path's first 64 frames (bench.py's
              fleet); aggregate frames/s = banks x frames / wall, best of 4
-             runs, each of which must launch exactly 64 x (C + 2) kernels.
+             runs, each of which must launch each kernel exactly 64 times.
 8. d4, c8  - bench.py's extra assets, deployed exact: bench_model_d4.npz
              (d = 4) on the path's stream and the guard's trials, and
              bench_model_c8.npz (C = 8, D = 10, d = 3, Ny = 960) on its
              8-class task (bench.py:328-366).  Each runs a 200-frame path at
-             P = 10,000 (launches exactly 200 x C, 200 and 200) and its
-             banked guard (launches exactly T x (C + 2) for T padded
-             frames), whose frame accuracy and F1 are reported, not gated.
+             P = 10,000 (launches exactly 200 of each kernel) and its
+             banked guard (exactly T of each for T padded frames), whose
+             frame accuracy and F1 are reported, not gated, beside the
+             same guard on the plain PyTorch versions (pallas='off'; the
+             fp32 sums in another order).
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -137,12 +146,14 @@ def bound(flops: float, nbytes: float, peaks) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def posterior_work(N, P, d, Dout, has_linear):
-    """(flops, bytes) of one fused posterior: star kernel, mean, quad."""
+def posterior_work(N, P, d, Dout, has_linear, classes=1):
+    """(flops, bytes) of one fused posterior over ``classes`` class blocks
+    of N rows, which share the particles and hyperparameters: star kernel,
+    mean, quad."""
     per_pair = 3 * d + 1 + (2 * d + 2 if has_linear else 0)
-    flops = N * P * per_pair + 2 * N * Dout * P + 2 * N * N * P + 2 * N * P
-    nbytes = 4 * (N * d + P * d + d + (d + 1 if has_linear else 0) + N * Dout
-                  + N * N + P * Dout + P)
+    flops = classes * (N * P * per_pair + 2 * N * Dout * P + 2 * N * N * P + 2 * N * P)
+    nbytes = 4 * (classes * (N * d + N * Dout + N * N + P * Dout + P) + P * d + d
+                  + (d + 1 if has_linear else 0))
     return flops, nbytes
 
 
@@ -279,8 +290,8 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
     from gpmdm_tpu_torch import GPMDM, GPMDM_PF, PFConfig
-    from gpmdm_tpu_torch.bench_kernels import (RANK_SHAPES, conditioned, dirichlet_counts,
-                                               gemm_yardstick)
+    from gpmdm_tpu_torch.bench_kernels import (RANK_SHAPES, conditioned, conditioned_classes,
+                                               dirichlet_counts, gemm_yardstick, time_ms)
     from gpmdm_tpu_torch.data import synthetic
     from gpmdm_tpu_torch.filter import particle_filter as pf
     from gpmdm_tpu_torch.ops import _build
@@ -326,18 +337,32 @@ def main(argv) -> int:
     lin_w = torch.exp(params.x_log_lin_coeff)
     inv_ls_y = torch.exp(-params.y_log_lengthscales)
     lam2 = torch.exp(2.0 * params.y_log_lambdas)
-    Ax_cond, Kx_cond = conditioned(n_max, d, dev, seed=1)
+    Ax_cond, Kx_cond = conditioned_classes(C, n_max, d, dev, seed=1)
     Ay_cond, Ky_cond = conditioned(Ny, D, dev, seed=2)
 
     def check_k1(post_, xs_, inv_ls_, lin_w_, A_cond, K_cond):
-        """K1 (class 0) on post_'s rows, timed at every tile."""
-        n = post_.Xin_c.shape[1]
-        args = (post_.Xin_c[0], xs_, post_.Axc[0], post_.Kxc_inv[0], inv_ls_, lin_w_, n)
-        return check_kernel(
-            "fused_x_posterior", gpk.fused_x_posterior, gpk.fused_x_posterior_plain, args,
-            (post_.Xin_c[0], xs_, A_cond, K_cond, inv_ls_, lin_w_, n), peaks,
-            posterior_work(n, xs_.shape[0], xs_.shape[1], xs_.shape[1], True),
+        """K1 over all of post_'s classes in one launch, as the filter calls
+        it, timed at every tile and, where it takes the one-pass design,
+        on the streamed core too; with the design, tile and splits that
+        the launcher chose."""
+        Cx, n, Dout = post_.Axc.shape
+        P_, din = xs_.shape
+        args = (post_.Xin_c, xs_, post_.Axc, post_.Kxc_inv, inv_ls_, lin_w_, n)
+        entry = check_kernel(
+            "fused_x_posterior", gpk.fused_x_posterior_classes,
+            gpk.fused_x_posterior_classes_plain, args,
+            (post_.Xin_c, xs_, A_cond, K_cond, inv_ls_, lin_w_, n), peaks,
+            posterior_work(n, P_, din, Dout, True, Cx),
             tiled=lambda tp: gpk._posterior_cuda("fused_x_posterior", *args, True, tile=tp))
+        tp, splits, one, _, _ = gpk._plan(_build.library(), "fused_x_posterior", n, Dout, P_,
+                                          0, dev, torch.cuda.current_stream(dev).cuda_stream,
+                                          Cx, True)
+        entry.update(design="one_pass" if one else "streamed", tile=tp, splits=splits,
+                     classes=Cx, rows=n)
+        if one:
+            entry["streamed_ms"] = time_ms(lambda: gpk._posterior_cuda(
+                "fused_x_posterior", *args, True, one_pass=False))
+        return entry
 
     def check_k2(post_, xs_, inv_ls_, lam2_, z, A_cond, K_cond):
         """K2 on post_'s rows against z (one row per bank), timed at every
@@ -388,6 +413,19 @@ def main(argv) -> int:
         for i, entry in banked:
             entry["shape"] = [nb, pb]
             kernels[i]["banked"].append(entry)
+    # K1 at the d4 and c8 assets' widths and classes, on their initial clouds
+    kernels[0]["assets"] = []
+    for label, fname in (("d4", "bench_model_d4.npz"), ("c8", "bench_model_c8.npz")):
+        m = GPMDM.load(os.path.join(ROOT, "bench_assets", fname), device=dev)
+        pst, prm = m.posterior, m.params
+        g = torch.Generator(device=dev).manual_seed(0)
+        xa = pf.pf_init(pst, m.layout.y_class_offsets, g, pfc).x.contiguous()
+        entry = check_k1(pst, xa, torch.exp(-prm.x_log_lengthscales),
+                         torch.exp(prm.x_log_lin_coeff),
+                         *conditioned_classes(*pst.Axc.shape, dev, seed=5))
+        entry.update(asset=label, shape=[1, xa.shape[0]])
+        kernels[0]["assets"].append(entry)
+        del m, pst, prm, xa
     rank_shapes = [check_rank(rs, frame_s[(nb, pb)], dirichlet_counts(nb, pb, nb + pb, dev),
                               peaks) for nb, pb in RANK_SHAPES]
     kernels.append({"name": "resample_rank", "route": "cuda", "source": RANK_CSRC,
@@ -413,7 +451,7 @@ def main(argv) -> int:
             checks.append((0, pst.Xin_c.shape[1],
                            check_k1(pst, xl, torch.exp(-prm.x_log_lengthscales),
                                     torch.exp(prm.x_log_lin_coeff),
-                                    *conditioned(pst.Xin_c.shape[1], m.d, dev, seed=4))))
+                                    *conditioned_classes(*pst.Axc.shape, dev, seed=4))))
         for i, rows, entry in checks:
             entry.update(asset=label, rows=rows, shape=[1, xl.shape[0]])
             kernels[i]["large_n"].append(entry)
@@ -427,11 +465,12 @@ def main(argv) -> int:
         gpk.reset_launches()
         rs.reset_launches()
 
-    def check_launches(label, frames, classes=C):
-        """The counters against ``frames`` frames of one K1 launch a class,
-        one of K2 and one of K3, whatever the number of banks."""
+    def check_launches(label, frames):
+        """The counters against ``frames`` frames of one launch each of K1
+        (every class at once), K2 and K3, whatever the number of banks and
+        classes."""
         got = {**gpk.LAUNCHES, **rs.LAUNCHES}
-        want = {"fused_x_posterior": frames * classes, "fused_rbf_posterior": 0,
+        want = {"fused_x_posterior": frames, "fused_rbf_posterior": 0,
                 "fused_obs_loglik": frames, "resample_rank": frames}
         if got != want:
             raise AssertionError(f"{label}: launch counts {got}, expected {want}")
@@ -466,7 +505,7 @@ def main(argv) -> int:
     emit({"phase": "path", "particles": N_PARTICLES, "frames": N_FRAMES,
           "launches": launches, "fps": N_FRAMES / best, "ms_per_frame": 1e3 * best / N_FRAMES,
           "walls_s": walls, "plain_path_fps": N_FRAMES / plain_wall,
-          "kernel_ms_per_frame": C * kernels[0]["ms"] + kernels[2]["ms"] + kernels[3]["ms"],
+          "kernel_ms_per_frame": kernels[0]["ms"] + kernels[2]["ms"] + kernels[3]["ms"],
           "device": kind, "nvidia_smi": smi})
 
     if "--profile" in argv:
@@ -547,7 +586,8 @@ def main(argv) -> int:
     def extra_asset(label, fname, Zx, trials, trial_labels, T):
         """The asset's 200-frame path at P = 10,000 and its banked guard on
         bench.py's trials, each with exact launch counts; the guard's
-        accuracy is reported, not gated."""
+        accuracy is reported, not gated, beside the same guard on the plain
+        versions."""
         m = GPMDM.load(os.path.join(ROOT, "bench_assets", fname), device=dev)
         pst, prm, cfg_x = m.posterior, m.params, m.config
         Cx = pst.Xin_c.shape[0]
@@ -564,7 +604,7 @@ def main(argv) -> int:
 
         reset_launches()
         wall, o = run()
-        path_launches = check_launches(f"{label} path", EXTRA_FRAMES, Cx)
+        path_launches = check_launches(f"{label} path", EXTRA_FRAMES)
         probs = o.class_probs
         if probs.shape != (EXTRA_FRAMES, Cx) or not torch.isfinite(probs).all():
             raise AssertionError(f"{label}: class_probs not finite or of the wrong shape")
@@ -575,7 +615,10 @@ def main(argv) -> int:
         reset_launches()
         rep = evaluate_pf_banked(m, T, trials, trial_labels, num_particles=N_PARTICLES,
                                  burn_in=5, seed=0, config=pfc)
-        guard_launches = check_launches(f"{label} banked guard", T_pad, Cx)
+        guard_launches = check_launches(f"{label} banked guard", T_pad)
+        plain = evaluate_pf_banked(m, T, trials, trial_labels, num_particles=N_PARTICLES,
+                                   burn_in=5, seed=0,
+                                   config=dataclasses.replace(pfc, pallas="off"))
         emit({"phase": label, "classes": Cx, "d": m.d, "D": m.D, "Ny": pst.X.shape[0],
               "n_max": pst.Xin_c.shape[1], "particles": N_PARTICLES, "frames": EXTRA_FRAMES,
               "path_launches": path_launches, "fps": EXTRA_FRAMES / min(walls),
@@ -584,6 +627,8 @@ def main(argv) -> int:
                   "trial_acc": rep.trial_metrics["accuracy"], "frames": rep.total_frames,
                   "banks": len(trials), "padded_frames": T_pad, "wall_s": rep.total_wall_s,
                   "agg_fps": rep.fps, "launches": guard_launches},
+              "plain_banked_guard": {"frame_acc": plain.frame_metrics["accuracy"],
+                                     "frame_f1": plain.frame_metrics["f1"]},
               "device": kind, "nvidia_smi": smi})
         return path_launches, guard_launches
 
@@ -612,7 +657,7 @@ def main(argv) -> int:
     _phase[0] = "report"
     heavy = ("path_inputs", "conditioned_inputs")
     emit({"kernels": [{k: ([{kk: vv for kk, vv in e.items() if kk not in heavy} for e in v]
-                           if k in ("banked", "large_n") else v)
+                           if k in ("banked", "large_n", "assets") else v)
                        for k, v in kern.items() if k not in heavy}
                       for kern in kernels]})
     print(f"{smi} (total {time.perf_counter() - t_start:.1f} s)", flush=True)

@@ -4,12 +4,13 @@ Counterpart of ``gpmdm_tpu/filter/particle_filter.py`` on its fused-kernel
 path (``PFConfig(pallas='on')``), for one filter (``pf_init``, ``pf_step``,
 ``pf_scan``, ``GPMDM_PF``) or a bank of B independent filters in one call
 (``pf_init_bank``, ``pf_step_bank``, ``pf_scan_bank``,
-``pf_scan_bank_masked``).  One filter is a bank of one.  Each frame runs:
+``pf_scan_bank_masked``; ``pf_scan_masked`` for one padded sequence).  One
+filter is a bank of one.  Each frame runs:
 
 1. Markov class transition, by inverse CDF: one uniform per particle;
-2. the per-class dynamics posterior (``fused_x_posterior``, one launch per
-   class over every bank's particles) and a draw from the selected
-   class's predictive Gaussian;
+2. the per-class dynamics posterior (``fused_x_posterior_classes``: one
+   launch for every class over every bank's particles) and a draw from
+   the selected class's predictive Gaussian;
 3. observation weighting (``fused_obs_loglik``, one launch, one
    observation per bank);
 4. weight normalisation and the readouts per bank, taken BEFORE
@@ -202,8 +203,9 @@ def multinomial_resample_indices(generator: torch.Generator,
 def _kernel_fns(pf_cfg: PFConfig):
     """K1, K2 and K3, or their plain versions under ``pallas='off'``."""
     if pf_cfg.pallas == "off":
-        return gpk.fused_x_posterior_plain, gpk.fused_obs_loglik_plain, rs.resample_rank_plain
-    return gpk.fused_x_posterior, gpk.fused_obs_loglik, rs.resample_rank
+        return (gpk.fused_x_posterior_classes_plain, gpk.fused_obs_loglik_plain,
+                rs.resample_rank_plain)
+    return gpk.fused_x_posterior_classes, gpk.fused_obs_loglik, rs.resample_rank
 
 
 def pf_step_bank(states: PFState, z: torch.Tensor, post: core.Posterior,
@@ -214,8 +216,9 @@ def pf_step_bank(states: PFState, z: torch.Tensor, post: core.Posterior,
     -> (new states, readouts with a leading bank axis).
 
     Counterpart of the JAX package's flat-bank step: the GP stages run on
-    the flat (B * Pb, d) particle set as one filter would (C launches of
-    K1, one of K2 with one observation per bank), and only the O(P) glue is
+    the flat (B * Pb, d) particle set as one filter would (one launch of
+    K1 for all C classes, one of K2 with one observation per bank), and
+    only the O(P) glue is
     bank-blocked: weight normalisation, readouts, the ESS select, the rank
     K3 over (B, Pb) and one flat offset gather.  ``noise`` supplies this
     frame's randomness; without it the step draws from ``generator``.
@@ -251,17 +254,11 @@ def pf_step_bank(states: PFState, z: torch.Tensor, post: core.Posterior,
         xin, params.x_log_lin_coeff, params.x_log_sigma_n, cfg.sigma_n_num_X, False
     )
     lam_x = torch.exp(params.x_log_lambdas)[None, :] ** -2
-    m_list, v_list = [], []
-    for ci in range(post.Xin_c.shape[0]):
-        mean_ci, quad_ci = x_posterior(
-            post.Xin_c[ci], xin, post.Axc[ci], post.Kxc_inv[ci], inv_ls, lin_w,
-            post.Xin_c.shape[1],
-        )
-        var_common = diag_star - quad_ci  # no clamp on this path
-        m_list.append(mean_ci)
-        v_list.append(var_common[:, None] * lam_x)
-    mean = _select_by_class(torch.stack(m_list), c)
-    var = torch.clamp(_select_by_class(torch.stack(v_list), c), min=1e-12)
+    means, quads = x_posterior(post.Xin_c, xin, post.Axc, post.Kxc_inv, inv_ls, lin_w,
+                               post.Xin_c.shape[1])
+    var_common = diag_star[None] - quads  # (C, P), no clamp on this path
+    mean = _select_by_class(means, c)
+    var = torch.clamp(_select_by_class(var_common[:, :, None] * lam_x, c), min=1e-12)
     prop = mean + torch.sqrt(var) * noise.eps_dyn.reshape(P, d).to(mean.dtype)
     x_new = x_flat + prop if cfg.dyn_target == "delta" else prop
 
@@ -358,8 +355,25 @@ def pf_scan(state: PFState, Z: torch.Tensor, post: core.Posterior,
     frame; returns the final state and the readouts stacked over frames.
     ``noise`` (leading frame axis) injects every frame's randomness;
     otherwise each frame draws from ``generator``.  A bank of one."""
+    return pf_scan_masked(state, Z, None, post, params, log_T, cfg, pf_cfg,
+                          generator=generator, noise=noise)
+
+
+def pf_scan_masked(state: PFState, Z: torch.Tensor, valid, post: core.Posterior,
+                   params: core.GPMDMParams, log_T: torch.Tensor, cfg: GPMDMConfig,
+                   pf_cfg: PFConfig, generator: torch.Generator | None = None,
+                   noise: PFNoise | None = None) -> tuple[PFState, PFOutputs]:
+    """``pf_scan`` over a padded (T_pad, D) sequence: on a frame where
+    ``valid[t]`` (T_pad,) is False the state passes through unchanged (the
+    frame's readouts are computed and meaningless, to be sliced off).
+    ``noise`` is indexed by frame position, so a masked frame consumes its
+    draws; for the prefix-valid masks of padded trials the valid frames
+    see the draws of an unmasked scan.  A bank of one
+    (``pf_scan_bank_masked``)."""
+    if valid is not None:
+        valid = torch.as_tensor(valid, dtype=torch.bool, device=state.x.device)[None]
     new, outs = pf_scan_bank_masked(
-        _map(state, lambda a: a[None]), Z[None], None, post, params, log_T, cfg, pf_cfg,
+        _map(state, lambda a: a[None]), Z[None], valid, post, params, log_T, cfg, pf_cfg,
         generator=generator,
         noise=None if noise is None else _map(noise, lambda a: a.unsqueeze(1)))
     return _map(new, lambda a: a[0]), _map(outs, lambda a: a[0])
@@ -476,5 +490,21 @@ class GPMDM_PF:
         return self._require_update().state_mean.cpu().numpy()
 
     @property
+    def latent_dim(self) -> int:
+        return self._gpmdm.d
+
+    @property
+    def observation_dim(self) -> int:
+        return self._gpmdm.D
+
+    @property
+    def num_classes(self) -> int:
+        return self._gpmdm.n_classes
+
+    @property
     def num_particles(self) -> int:
         return self.pf_config.num_particles
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._gpmdm.dtype

@@ -40,8 +40,8 @@ _I = ctypes.c_int
 # (restype, argtypes) of each launcher; pointers and the stream are c_void_p
 # so that ctypes never cuts a 64-bit address to a 32-bit int.
 _SIGNATURES = {
-    "gp_plan": (_I, [_I] * 5 + [_P]),
-    "gp_posterior_launch": (_I, [_P] * 8 + [_I] * 8 + [_P] * 3),
+    "gp_plan": (_I, [_I] * 7 + [_P]),
+    "gp_posterior_launch": (_I, [_P] * 8 + [_I] * 10 + [_P] * 3),
     "obs_loglik_launch": (_I, [_P] * 9 + [_I] * 7 + [_P] * 3),
     "resample_rank_launch": (_I, [_P] * 2 + [_I] * 2 + [_P]),
 }

@@ -1,20 +1,23 @@
 // Fused exact-GP posterior kernels for Hopper (sm_90a), in plain fp32.
 //
-// Replaces the Pallas TPU kernels of gpmdm_tpu/ops/pallas/gp_posterior.py,
-// all three on one streamed core, posterior_core<TP, KIND>:
+// Replaces the Pallas TPU kernels of gpmdm_tpu/ops/pallas/gp_posterior.py
+// on two designs:
 //
 //   KIND_X   replaces _fused_posterior/_kernel (has_linear=True) behind
 //            fused_x_posterior: the per-class dynamics posterior of the
 //            particle filter (RBF + homogeneous linear star kernel, rows
-//            >= n_valid masked to exactly 0).
+//            >= n_valid masked to exactly 0), every class in one launch
+//            (a grid axis over the C stacked class blocks).  While
+//            N + Dout <= 256 it runs x_onepass<NTH>; past that the
+//            streamed core.
 //   KIND_RBF replaces the same body with has_linear=False behind
-//            fused_rbf_posterior (RBF star kernel).
+//            fused_rbf_posterior (RBF star kernel), on the streamed core.
 //   KIND_OBS replaces _obs_loglik_kernel behind fused_obs_loglik: the
 //            variance quad and qres = sum_j lam2_j (mean_j - z_j)^2, with
-//            the mean never leaving the chip.  Bank-aware: with B banks of
-//            Pb = P / B particles, particle p is weighed against its own
-//            bank's row z[p / Pb], chosen per particle (a block's particle
-//            tile may straddle two banks).
+//            the mean never leaving the chip, on the streamed core.
+//            Bank-aware: with B banks of Pb = P / B particles, particle p
+//            is weighed against its own bank's row z[p / Pb], chosen per
+//            particle (a block's particle tile may straddle two banks).
 //
 // With N training rows, Dout outputs and the inputs scaled by the inverse
 // lengthscales (lt/ls by the linear weights), each block owns TP particles:
@@ -31,31 +34,45 @@
 // Squared distances are summed per dimension, never by the norm expansion,
 // for the same reason.
 //
-// Design.  Kstar is never stored whole, so a block's shared memory does not
-// depend on N.  A block walks the columns of G in passes of RC; in each
-// pass it streams M by MB-row tiles through a two-stage ring filled with
-// cp.async (the next tile loads while this one feeds the FMAs: one barrier
-// a tile) and generates the matching (MB x TP) Kstar tile from the raw
-// training rows, staged two tiles ahead, and the d scaled inputs of each
-// particle, kept in registers for d <= DMAX.  Each thread holds an 8 x 8
-// register tile of G (8 particles x 8 columns, in two halves so that a
-// quarter warp reads neighbouring float4: no bank conflicts): 64 FMAs per
-// four float4 shared-memory loads.  A warp whose columns all lie past
-// N + Dout skips its FMAs.  The epilogue regenerates Kstar[c, p] for the
-// thread's own columns (N x TP exps a pass, against 2 N RC TP FMAs) and
-// folds G into quad, the mean or qres; per-particle sums meet in shared
-// memory.  TP is 64 (RC 256) or 128 (RC 128): 128 halves the M tiles
-// re-read from L2 per particle, 64 halves the regenerations.  When the
-// particle tiles alone cannot fill the card (P = 10,000), the passes are
-// dealt over several blocks a tile and the last block of a tile to finish
-// adds their sums in a fixed order, so the result does not depend on
-// timing (gp_plan); it also sets the tile's ticket back to 0, so one
-// zeroed ticket array serves every launch.  The ragged last particle tile computes on zero
-// inputs and stores nothing.
+// Both designs give each thread an 8 x 8 register tile of G (8 particles x
+// 8 columns, in two halves so that a quarter warp reads neighbouring
+// float4: no bank conflicts), 64 FMAs per four float4 shared-memory loads,
+// and stream M by MB-row tiles through a ring in shared memory filled with
+// cp.async.  Per-particle sums meet in shared memory and are added in a
+// fixed order, so results do not depend on timing.
 //
-// Measured (PERF.md): about a third of the fp32 bound on the banks; the
-// Kstar regeneration and the staging the FMAs do not hide cost about as
-// much as the FMA loop, which itself runs near half the fp32 issue rate.
+// x_onepass (K1 while N + Dout <= 256: every shipped asset's dynamics
+// block, 238 columns at the headline).  A block owns TP = 64 or 128
+// particles and ALL N + Dout columns (256, or 128 when they fit), so it
+// makes one pass: it generates its whole (N x TP) star tile once into
+// shared memory while the first tiles of M are already in flight; then
+// each group of warps (one warp per 64 particles) streams its own 32
+// columns of M through its own two-stage ring of MB-row tiles and waits
+// only for itself; the quad is folded from the same resident star tile.
+// 64-particle blocks run two an SM; 128-particle blocks read M from L2
+// half as often per particle and run one an SM (the large grids).  A grid
+// axis over the classes.
+//
+// posterior_core (K1 past 256 columns, K1', K2).  Kstar is never stored
+// whole, so a block's shared memory does not depend on N.  A block walks
+// the columns of G in passes of RC; in each pass it streams M through a
+// two-stage ring and generates the matching (MB x TP) Kstar tile from the
+// raw training rows, staged two tiles ahead, and the d scaled inputs of
+// each particle, kept in registers for d <= DMAX.  A warp whose columns all
+// lie past N + Dout skips its FMAs.  The epilogue regenerates Kstar[c, p]
+// for the thread's own columns (N x TP exps a pass, against 2 N RC TP
+// FMAs) and folds G into quad, the mean or qres.  TP is 64 (RC 256) or 128
+// (RC 128): 128 halves the M tiles re-read from L2 per particle, 64 halves
+// the regenerations.  When the particle tiles alone cannot fill the card
+// (P = 10,000), the passes are dealt over several blocks a tile and the
+// last block of a tile to finish adds their sums in a fixed order
+// (gp_plan); it also sets the tile's ticket back to 0, so one zeroed
+// ticket array serves every launch.  The ragged last particle tile
+// computes on zero inputs and stores nothing.
+//
+// Measured (PERF.md): the streamed core reaches about a third of the fp32
+// bound on the banks; the Kstar regeneration and the staging the FMAs do
+// not hide cost about as much as the FMA loop.
 //
 // Each launcher returns cudaGetLastError() (0 on success).
 
@@ -66,13 +83,17 @@
 namespace {
 
 // Compile-time flags for measurement variants (ops/_build.py defines=):
-//   GP_SKIP_GEN  Kstar tiles are not generated (timing only: wrong results);
-//   GP_SKIP_FMA  the FMA loop does not run (timing only: wrong results).
-constexpr int NT = 256;  // threads per block
+//   GP_SKIP_GEN    Kstar tiles are not generated (timing only: wrong results);
+//   GP_SKIP_FMA    the FMA loop does not run (timing only: wrong results);
+//   GP_SKIP_STAGE  the tiles of M are not loaded (timing only: wrong results).
+constexpr int NT = 256;  // threads per block of the streamed core
 constexpr int PP = 8;    // particles per thread
 constexpr int CC = 8;    // columns of G per thread, a multiple of 4
 constexpr int MB = 16;   // rows of M (and of Kstar) per ring stage
+constexpr int RING = 2;  // stages of an x_onepass group's ring of M (3 or 4: no
+                         // faster on the banks, slower where fewer blocks fit an SM)
 constexpr int DMAX = 4;  // latent widths whose star kernel runs from registers
+constexpr int ONEPASS_COLS = 256;  // the most columns N + Dout of x_onepass
 
 constexpr int KIND_RBF = 0, KIND_X = 1, KIND_OBS = 2;
 
@@ -82,19 +103,19 @@ constexpr int KIND_RBF = 0, KIND_X = 1, KIND_OBS = 2;
 // ..  So the eight lanes of a quarter warp read eight neighbouring float4 of
 // the Kstar tile and one (broadcast) float4 of the M tile: no bank
 // conflicts.  A warp is LX x LY threads.
-template <int TP>
+template <int TP, int NTH = NT>
 struct Tile {
   static constexpr int TX = TP / PP;         // threads along the particles
-  static constexpr int TY = NT / TX;         // threads along the columns
+  static constexpr int TY = NTH / TX;        // threads along the columns
   static constexpr int RC = TY * CC;         // columns per pass
   static constexpr int LX = TX < 8 ? TX : 8;  // a warp's lanes along the particles
   static constexpr int LY = 32 / LX;
   static constexpr int WX = TX / LX;         // warps along the particles
   static constexpr int STAGE = MB * RC;      // floats of one staged M tile
   static constexpr int KT = MB * TP;         // floats of one Kstar tile
-  static_assert(TX * TY == NT && LX * LY == 32, "the thread grid covers the block");
-  static_assert((MB * RC / 4) % NT == 0, "staging covers the tile evenly");
-  static_assert(NT % TP == 0 && MB % (NT / TP) == 0, "a thread generates one particle");
+  static_assert(TX * TY == NTH && LX * LY == 32, "the thread grid covers the block");
+  static_assert((MB * RC / 4) % NTH == 0, "staging covers the tile evenly");
+  static_assert(NTH % TP == 0 && MB % (NTH / TP) == 0, "a thread generates one particle");
 };
 
 // Asynchronous global -> shared copies: cp.async on the card, a plain copy
@@ -126,6 +147,36 @@ __device__ inline void copy_wait_all() {
 #endif
 }
 
+// Closes this thread's batch of copies as one group.
+__device__ inline void copy_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Waits until at most n of this thread's groups are still in flight.
+template <int n>
+__device__ inline void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+#endif
+}
+
+// Barrier of group g's WX warps: the warp itself, or named barrier 1 + g
+// (0 is __syncthreads'); off the card the emulation's stand-in.
+template <int WX>
+__device__ inline void group_sync(int g) {
+  if (WX == 1) {
+    __syncwarp();
+  } else {
+#if defined(__CUDA_ARCH__)
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "n"(32 * WX) : "memory");
+#else
+    __named_barrier_sync(1 + g, 32 * WX);
+#endif
+  }
+}
+
 template <int TP, int KIND>
 __global__ void __launch_bounds__(NT, 2)
 posterior_core(const float* __restrict__ xt, const float* __restrict__ xs,
@@ -137,6 +188,13 @@ posterior_core(const float* __restrict__ xt, const float* __restrict__ xs,
                int* __restrict__ ticket) {
   using T = Tile<TP>;
   constexpr bool LIN = KIND == KIND_X, OBS = KIND == KIND_OBS;
+  // the class block of this launch's class axis (K1; 0 for K1' and K2)
+  const int cls = blockIdx.z;
+  xt += (size_t)cls * N * d;
+  A += (size_t)cls * N * Dout;
+  kinv += (size_t)cls * N * N;
+  out0 += (size_t)cls * P * Dout;
+  out1 += (size_t)cls * P;
   extern __shared__ __align__(16) float smem[];
   float* mt = smem;                 // ring of two M tiles, MB x RC each
   float* kt = mt + 2 * T::STAGE;    // ring of two Kstar tiles, MB x TP each
@@ -276,7 +334,9 @@ posterior_core(const float* __restrict__ xt, const float* __restrict__ xs,
     for (int t = 0; t < steps; ++t) {
       const int cur = t & 1;
       if (t + 1 < steps) {
+#ifndef GP_SKIP_STAGE
         stage_m((t + 1) * MB, mt + (cur ^ 1) * T::STAGE);
+#endif
 #ifndef GP_SKIP_GEN
         gen((t + 1) * MB, xr + ((t + 1) % 3) * MB * d, kt + (cur ^ 1) * T::KT);
 #endif
@@ -362,6 +422,8 @@ posterior_core(const float* __restrict__ xt, const float* __restrict__ xs,
     // The passes are split over blocks: each writes its sums, and the last
     // block of the particle tile to finish adds them in split order.
     __shared__ int last;
+    partial += (size_t)cls * 2 * splits * P;
+    ticket += (size_t)cls * gridDim.x;
     if (tid < TP && p < P) {
       partial[(size_t)(2 * blockIdx.y) * P + p] = q;
       partial[(size_t)(2 * blockIdx.y + 1) * P + p] = r;
@@ -391,6 +453,206 @@ posterior_core(const float* __restrict__ xt, const float* __restrict__ xs,
   }
 }
 
+// K1 in one pass, while N + Dout <= RC columns (RC = 64 NTH / TP): a block
+// owns TP particles of class blockIdx.y and every column of G.  It scales
+// the class's training rows once and generates its whole star tile
+// (Npad = N rounded up to MB rows, x TP; rows past N and rows >= n_valid
+// exactly 0) into shared memory once, before the FMA loop.  The warps form
+// groups of WX = TP / 64 (one warp per 64 particles); a group owns two
+// blocks of 16 columns, J0 = group and the mirrored J1 = RC / 16 - 1 -
+// group, and streams its own 32 columns of M through its own ring of RING
+// MB-row tiles: the loop synchronises only the group (the warp, or a pair
+// of warps by a named barrier), so the groups of a block never wait for
+// each other.  The epilogue folds the quad from the resident star tile;
+// the rings then hold the per-particle sums by thread row (TY x TP).
+template <int TP, int NTH>
+__global__ void __launch_bounds__(NTH, 512 / NTH)
+x_onepass(const float* __restrict__ xt, const float* __restrict__ xs,
+          const float* __restrict__ inv_ls, const float* __restrict__ lin_w,
+          const float* __restrict__ A, const float* __restrict__ kinv,
+          float* __restrict__ mean, float* __restrict__ quad, int N, int P, int d, int Dout,
+          int n_valid) {
+  using T = Tile<TP, NTH>;
+  static_assert(T::LX == 8 && T::LY == 4, "a warp holds 32 particles x 16 columns");
+  constexpr int WX = T::WX, GS = 32 * WX;  // warps and threads of a group
+  constexpr int W = 32, WSTAGE = MB * W;   // a group's columns; floats of its staged tile
+  static_assert(T::TY * TP <= RING * MB * T::RC, "the rings hold the per-particle sums");
+  const int cls = blockIdx.y;
+  xt += (size_t)cls * N * d;
+  A += (size_t)cls * N * Dout;
+  kinv += (size_t)cls * N * N;
+  mean += (size_t)cls * P * Dout;
+  quad += (size_t)cls * P;
+  extern __shared__ __align__(16) float smem[];
+  const int steps = (N + MB - 1) / MB;
+  float* ks = smem;                      // the star tile, steps * MB x TP
+  float* ring = ks + steps * MB * TP;    // per group: RING tiles of its 32 columns of M
+  float* xi = ring + RING * MB * T::RC;  // the training rows / lengthscales, N x d
+  float* xl = xi + N * d;                // and times the linear weights, N x d
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int group = warp / WX, gt = (warp % WX) * 32 + lane;  // thread gt of its group
+  const int tx = (warp % WX) * 8 + lane % 8, ty = group * 4 + lane / 8;
+  const int J0 = group, J1 = T::RC / 16 - 1 - group;
+  const int c0 = 16 * J0 + (lane / 8) * 4, c1 = 16 * J1 + (lane / 8) * 4;
+  const int p0 = blockIdx.x * TP;
+  const int Ncol = N + Dout;
+  const bool vec = N % 4 == 0 && ((uintptr_t)kinv & 15) == 0;  // Kinv rows 16-byte aligned
+  float* gring = ring + group * RING * WSTAGE;
+
+  // Thread gt stages float4 q = e % 8 of row e / 8 for e = gt, gt + GS, ..:
+  // q < 4 in block J0, else in J1 (0 past the ends).
+  auto stage_m = [&](int t) {
+    float* dst = gring + (t % RING) * WSTAGE;
+#pragma unroll
+    for (int i = 0; i < WSTAGE / 4 / GS; ++i) {
+      const int e = gt + GS * i, mm = e / 8, q = e % 8;
+      const int m = t * MB + mm, c = 16 * (q < 4 ? J0 : J1) + 4 * (q % 4);
+      float* to = dst + mm * W + 4 * q;
+      if (vec && m < N && c < N) {
+        copy_async16(to, kinv + (size_t)m * N + c);
+      } else {
+        for (int u = 0; u < 4; ++u) {
+          const int cu = c + u;
+          const bool ok = m < N && cu < Ncol;
+          const float* src = !ok ? kinv
+                             : cu < N ? kinv + (size_t)m * N + cu
+                                      : A + (size_t)m * Dout + (cu - N);
+          copy_async4(to + u, src, ok);
+        }
+      }
+    }
+  };
+
+  // the first RING - 1 tiles of M load while the star tile is generated
+#pragma unroll
+  for (int t = 0; t < RING - 1; ++t) {
+#ifndef GP_SKIP_STAGE
+    if (t < steps) stage_m(t);
+#endif
+    copy_commit();
+  }
+  // the training rows scaled once: xi = x / ls, xl = x * lin_w (exactly the
+  // products the generation would form per element)
+  for (int e = tid; e < N * d; e += NTH) {
+    xi[e] = xt[e] * inv_ls[e % d];
+    xl[e] = xt[e] * lin_w[e % d];
+  }
+  __syncthreads();
+
+  {
+    // Thread tid generates particle gp = tid % TP of rows tid / TP,
+    // + NTH / TP, .., from the particle's scaled inputs in registers.
+    const int gp = tid % TP;
+    const float bias = lin_w[d] * lin_w[d];
+    float gx[DMAX], gl[DMAX];
+#pragma unroll
+    for (int k = 0; k < DMAX; ++k) {
+      const float x = k < d && p0 + gp < P ? xs[(size_t)(p0 + gp) * d + k] : 0.f;
+      gx[k] = k < d ? x * inv_ls[k] : 0.f;
+      gl[k] = k < d ? x * lin_w[k] : 0.f;
+    }
+    for (int m = tid / TP; m < steps * MB; m += NTH / TP) {
+      float v = 0.f;
+#ifndef GP_SKIP_GEN
+      if (m < n_valid) {
+        const float *ri = xi + m * d, *rl = xl + m * d;
+        float sq = 0.f, lin = 0.f;
+        if (d <= DMAX) {
+#pragma unroll
+          for (int k = 0; k < DMAX; ++k) {
+            if (k < d) {
+              const float diff = ri[k] - gx[k];
+              sq += diff * diff;
+              lin += rl[k] * gl[k];
+            }
+          }
+        } else {
+          const int p = p0 + gp;
+          for (int k = 0; k < d; ++k) {
+            const float x = p < P ? xs[(size_t)p * d + k] : 0.f;
+            const float diff = ri[k] - x * inv_ls[k];
+            sq += diff * diff;
+            lin += rl[k] * (x * lin_w[k]);
+          }
+        }
+        v = expf(-sq) + lin + bias;
+      }
+#endif
+      ks[m * TP + gp] = v;
+    }
+  }
+  __syncthreads();  // the star tile is whole
+
+  float s[PP][CC];
+#pragma unroll
+  for (int a = 0; a < PP; ++a)
+#pragma unroll
+    for (int b = 0; b < CC; ++b) s[a][b] = 0.f;
+
+  for (int t = 0; t < steps; ++t) {
+    copy_wait<RING - 2>();  // this thread's copies of tile t have landed
+    group_sync<WX>(group);  // and the group's; its stage (t - 1) % RING is free
+#ifndef GP_SKIP_STAGE
+    if (t + RING - 1 < steps) stage_m(t + RING - 1);
+#endif
+    copy_commit();
+#ifndef GP_SKIP_FMA
+    // MB rows of the star tile against the thread's columns c0 .. c0+3 and
+    // c1 .. c1+3
+    const float* mb = gring + (t % RING) * WSTAGE + (lane / 8) * 4;
+    const float* kb = ks + t * MB * TP + tx * 4;
+#pragma unroll
+    for (int mm = 0; mm < MB; ++mm) {
+      const float4 k0 = *reinterpret_cast<const float4*>(kb + mm * TP);
+      const float4 k1 = *reinterpret_cast<const float4*>(kb + mm * TP + TP / 2);
+      const float4 v0 = *reinterpret_cast<const float4*>(mb + mm * W);
+      const float4 v1 = *reinterpret_cast<const float4*>(mb + mm * W + 16);
+      const float kv[PP] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+      const float cv[CC] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int a = 0; a < PP; ++a)
+#pragma unroll
+        for (int b = 0; b < CC; ++b) s[a][b] = fmaf(kv[a], cv[b], s[a][b]);
+    }
+#endif
+  }
+  copy_wait<0>();
+  __syncthreads();  // every group is done with its ring; the rings take the sums
+
+  // epilogue: quad from the resident star tile, the mean straight out
+  float qacc[PP];
+#pragma unroll
+  for (int a = 0; a < PP; ++a) qacc[a] = 0.f;
+#pragma unroll
+  for (int b = 0; b < CC; ++b) {
+    const int c = (b < 4 ? c0 : c1) + b % 4;
+    if (c < N) {
+      const float4 k0 = *reinterpret_cast<const float4*>(ks + c * TP + tx * 4);
+      const float4 k1 = *reinterpret_cast<const float4*>(ks + c * TP + TP / 2 + tx * 4);
+      const float kv[PP] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+#pragma unroll
+      for (int a = 0; a < PP; ++a) qacc[a] = fmaf(kv[a], s[a][b], qacc[a]);
+    } else if (c < Ncol) {
+#pragma unroll
+      for (int a = 0; a < PP; ++a) {
+        const int p = p0 + (a < 4 ? 0 : TP / 2 - 4) + tx * 4 + a;
+        if (p < P) mean[(size_t)p * Dout + (c - N)] = s[a][b];
+      }
+    }
+  }
+  // every (thread row, particle) entry is written once
+  float* red = ring;
+#pragma unroll
+  for (int a = 0; a < PP; ++a)
+    red[ty * TP + (a < 4 ? 0 : TP / 2 - 4) + tx * 4 + a] = qacc[a];
+  __syncthreads();
+  for (int e = tid; e < TP; e += NTH) {
+    float q = 0.f;
+    for (int g = 0; g < T::TY; ++g) q += red[g * TP + e];
+    if (p0 + e < P) quad[p0 + e] = q;
+  }
+}
+
 // Dynamic shared-memory bytes of one block: it does not depend on N.
 template <int TP>
 size_t core_smem_bytes(int d, bool has_linear, bool obs) {
@@ -404,25 +666,60 @@ template <int TP, int KIND>
 int launch_core(const float* xt, const float* xs, const float* inv_ls, const float* lin_w,
                 const float* A, const float* kinv, const float* z, const float* lam2,
                 float* out0, float* out1, int N, int P, int d, int Dout, int n_valid,
-                int Pb, int splits, float* partial, int* ticket, cudaStream_t stream) {
+                int Pb, int C, int splits, float* partial, int* ticket, cudaStream_t stream) {
   const size_t smem = core_smem_bytes<TP>(d, KIND == KIND_X, KIND == KIND_OBS);
   auto kernel = posterior_core<TP, KIND>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((P + TP - 1) / TP, splits);
+  const dim3 grid((P + TP - 1) / TP, splits, C);
   kernel<<<grid, NT, smem, stream>>>(xt, xs, inv_ls, lin_w, A, kinv, z, lam2, out0, out1, N,
                                      P, d, Dout, n_valid, Pb, splits, partial, ticket);
   return (int)cudaGetLastError();
 }
 
-// Particles per block when the caller leaves it to the launcher (tile 0):
-// large grids take 128, which halves the M tiles re-read from L2 per
-// particle against 64; small ones take 64, whose RC = 256 columns a pass
-// regenerate Kstar half as often.
+// Dynamic shared-memory bytes of an x_onepass block: the star tile, the
+// rings and the raw rows (96 KB at the headline's 236 rows and 64
+// particles, two blocks an SM; 157 KB at 128 particles, one).
+template <int TP, int NTH>
+size_t onepass_smem_bytes(int N, int d) {
+  return sizeof(float) * ((size_t)(N + MB - 1) / MB * MB * TP +
+                          (size_t)RING * MB * Tile<TP, NTH>::RC + 2 * (size_t)N * d);
+}
+
+// x_onepass's columns a block: 128 when N + Dout fits them, else 256.
+inline int onepass_cols(int Ncol) { return Ncol <= 128 ? 128 : 256; }
+
+template <int TP, int NTH>
+int launch_onepass(const float* xt, const float* xs, const float* inv_ls, const float* lin_w,
+                   const float* A, const float* kinv, float* mean, float* quad, int N, int P,
+                   int d, int Dout, int n_valid, int C, cudaStream_t stream) {
+  const size_t smem = onepass_smem_bytes<TP, NTH>(N, d);
+  auto kernel = x_onepass<TP, NTH>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((P + TP - 1) / TP, C);
+  kernel<<<grid, NTH, smem, stream>>>(xt, xs, inv_ls, lin_w, A, kinv, mean, quad, N, P, d,
+                                      Dout, n_valid);
+  return (int)cudaGetLastError();
+}
+
+// Particles per block of the streamed core when the caller leaves it to
+// the launcher (tile 0): large grids take 128, which halves the M tiles
+// re-read from L2 per particle against 64; small ones take 64, whose
+// RC = 256 columns a pass regenerate Kstar half as often.
 inline int pick_tile(int P, int tile) {
   if (tile != 0) return tile;
   return P >= 32768 ? 128 : 64;
+}
+
+// Particles per x_onepass block (tile 0): 128 (half the tiles of M read
+// from L2 per particle) on large grids and for narrow blocks; 64 (two
+// blocks an SM) at P < 32,768.
+inline int pick_onepass_tile(int P, int Ncol, int tile) {
+  if (tile != 0) return tile;
+  return Ncol <= 128 || P >= 32768 ? 128 : 64;
 }
 
 inline int passes(int tp, int Ncol) {
@@ -434,18 +731,19 @@ template <int KIND>
 int dispatch(int tile, const float* xt, const float* xs, const float* inv_ls,
              const float* lin_w, const float* A, const float* kinv, const float* z,
              const float* lam2, float* out0, float* out1, int N, int P, int d, int Dout,
-             int n_valid, int Pb, int splits, void* partial, void* ticket,
+             int n_valid, int Pb, int C, int splits, void* partial, void* ticket,
              cudaStream_t stream) {
-  if (splits < 1 || splits > passes(tile, N + Dout) || (splits > 1 && !(partial && ticket)))
+  if (C < 1 || splits < 1 || splits > passes(tile, N + Dout) ||
+      (splits > 1 && !(partial && ticket)))
     return (int)cudaErrorInvalidValue;
   switch (tile) {
     case 64:
       return launch_core<64, KIND>(xt, xs, inv_ls, lin_w, A, kinv, z, lam2, out0, out1, N,
-                                   P, d, Dout, n_valid, Pb, splits, (float*)partial,
+                                   P, d, Dout, n_valid, Pb, C, splits, (float*)partial,
                                    (int*)ticket, stream);
     case 128:
       return launch_core<128, KIND>(xt, xs, inv_ls, lin_w, A, kinv, z, lam2, out0, out1, N,
-                                    P, d, Dout, n_valid, Pb, splits, (float*)partial,
+                                    P, d, Dout, n_valid, Pb, C, splits, (float*)partial,
                                     (int*)ticket, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -456,40 +754,57 @@ int dispatch(int tile, const float* xt, const float* xs, const float* inv_ls,
 
 extern "C" {
 
-// How a launch of N training rows, Dout outputs and P particles runs on a
-// card of sms SMs: plan = {particles per block, splits, particle tiles}.
-// tile 0 lets the launcher choose the particles per block (64 or 128).
-// With splits > 1 the passes over the columns of G are dealt over splits
-// blocks per particle tile, so that a small P still fills the card; the
-// caller then provides 2 x splits x P floats of partial sums and one
-// int per particle tile, zeroed before the first launch; each launch
-// leaves them zeroed again.  Returns 0, or cudaErrorInvalidValue for a
-// tile the launcher does not take.
-int gp_plan(int N, int Dout, int P, int tile, int sms, int* plan) {
-  const int tp = pick_tile(P, tile);
-  if (tp != 64 && tp != 128) return (int)cudaErrorInvalidValue;
+// How a launch of C class blocks of N training rows and Dout outputs over
+// P particles runs on a card of sms SMs: plan = {particles per block,
+// splits, particle tiles, one pass}.  tile 0 lets the launcher choose the
+// particles per block (64 or 128).  With one_pass (K1) and N + Dout <= 256
+// the launch takes x_onepass (plan[3] = 1, never split).  Otherwise the
+// streamed core: with splits > 1 its passes over the columns of G are
+// dealt over splits blocks per particle tile, so that a small P still
+// fills the card; the caller then provides 2 x splits x P x C floats of
+// partial sums and one int per particle tile and class, zeroed before the
+// first launch; each launch leaves them zeroed again.  Returns 0, or
+// cudaErrorInvalidValue for a tile the launcher does not take.
+int gp_plan(int N, int Dout, int P, int C, int tile, int one_pass, int sms, int* plan) {
+  const int Ncol = N + Dout;
+  const bool one = one_pass && Ncol <= ONEPASS_COLS;
+  const int tp = one ? pick_onepass_tile(P, Ncol, tile) : pick_tile(P, tile);
+  if ((tp != 64 && tp != 128) || C < 1) return (int)cudaErrorInvalidValue;
   const int tiles = (P + tp - 1) / tp;
-  const int want = (3 * sms + tiles - 1) / tiles;  // about three blocks per SM
-  const int np = passes(tp, N + Dout);
+  const int want = (3 * sms + tiles * C - 1) / (tiles * C);  // about three blocks per SM
+  const int np = passes(tp, Ncol);
   plan[0] = tp;
-  plan[1] = want < 1 ? 1 : (want < np ? want : np);
+  plan[1] = one || want < 1 ? 1 : (want < np ? want : np);
   plan[2] = tiles;
+  plan[3] = one;
   return 0;
 }
 
-// mean (P, Dout) and quad (P,) of the dynamics (has_linear) or RBF
-// posterior, with the tile and splits of gp_plan.
+// mean (C, P, Dout) and quad (C, P) of C class blocks (xt (C, N, d),
+// A (C, N, Dout), kinv (C, N, N)) of the dynamics (has_linear) or RBF
+// posterior, with the tile, splits and design of gp_plan.
 int gp_posterior_launch(const void* xt, const void* xs, const void* inv_ls,
                         const void* lin_w, const void* A, const void* kinv,
                         void* mean, void* quad, int N, int P, int d, int Dout,
-                        int n_valid, int has_linear, int tile, int splits, void* partial,
-                        void* ticket, void* stream_ptr) {
+                        int n_valid, int C, int has_linear, int tile, int one_pass,
+                        int splits, void* partial, void* ticket, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  const float *fxt = (const float*)xt, *fxs = (const float*)xs, *fil = (const float*)inv_ls,
+              *flw = (const float*)lin_w, *fA = (const float*)A, *fk = (const float*)kinv;
+  if (one_pass) {
+    if (!has_linear || N + Dout > ONEPASS_COLS || splits != 1 || C < 1)
+      return (int)cudaErrorInvalidValue;
+    const bool narrow = onepass_cols(N + Dout) == 128;
+    auto go = tile == 64    ? (narrow ? launch_onepass<64, 128> : launch_onepass<64, 256>)
+              : tile == 128 ? (narrow ? launch_onepass<128, 256> : launch_onepass<128, 512>)
+                            : nullptr;
+    if (go == nullptr) return (int)cudaErrorInvalidValue;
+    return go(fxt, fxs, fil, flw, fA, fk, (float*)mean, (float*)quad, N, P, d, Dout, n_valid, C,
+              stream);
+  }
   auto go = has_linear ? dispatch<KIND_X> : dispatch<KIND_RBF>;
-  return go(tile, (const float*)xt, (const float*)xs, (const float*)inv_ls,
-            (const float*)lin_w, (const float*)A, (const float*)kinv, nullptr, nullptr,
-            (float*)mean, (float*)quad, N, P, d, Dout, n_valid, P, splits, partial, ticket,
-            stream);
+  return go(tile, fxt, fxs, fil, flw, fA, fk, nullptr, nullptr, (float*)mean, (float*)quad, N,
+            P, d, Dout, n_valid, P, C, splits, partial, ticket, stream);
 }
 
 // quad (P,) and qres (P,) of the observation weighting, P = B * Pb
@@ -503,7 +818,7 @@ int obs_loglik_launch(const void* xt, const void* xs, const void* inv_ls,
   return dispatch<KIND_OBS>(tile, (const float*)xt, (const float*)xs, (const float*)inv_ls,
                             nullptr, (const float*)A, (const float*)kinv, (const float*)z,
                             (const float*)lam2, (float*)quad, (float*)qres, N, P, d, D, N,
-                            Pb, splits, partial, ticket, stream);
+                            Pb, 1, splits, partial, ticket, stream);
 }
 
 }  // extern "C"

@@ -11,17 +11,21 @@ filter's per-frame cost is the GP posterior over all particles:
 Each public function has two versions:
 
 - the CUDA kernel (``csrc/gp_posterior.cu``, built by ``_build``), which
-  generates Kstar tile by tile as it streams Kinv and the weights through
-  shared memory, for any number of training rows, and writes only the
-  outputs; the wrapper takes it for tensors on the card and launches it
-  or raises;
+  streams Kinv and the weights through shared memory against Kstar, for
+  any number of training rows, and writes only the outputs; the wrapper
+  takes it for tensors on the card and launches it or raises.  The
+  dynamics posterior (K1) runs every class in one launch
+  (``fused_x_posterior_classes``), in one pass over a star tile generated
+  once while N + Dout <= 256;
 - a plain PyTorch version (``*_plain``) with the same arithmetic, taken
   for tensors on the CPU and used as the kernel's reference on the card.
 
 The kernels take and compute IEEE fp32; the plain versions run in their
 inputs' dtype.  Both sum squared distances by per-dimension differences,
-never by the norm expansion, and mask padded training rows to exactly 0.  ``LAUNCHES`` counts kernel launches per
-function, so a run can show that it went through the kernels.
+never by the norm expansion, and mask padded training rows to exactly 0.
+``LAUNCHES`` counts kernel launches per kernel (K1's under
+``fused_x_posterior``, from either of its functions), so a run can show
+that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import functools
 
 import torch
 
-#: Kernel launches per public function since the last ``reset_launches``.
+#: Kernel launches per kernel since the last ``reset_launches``.
 LAUNCHES = {"fused_x_posterior": 0, "fused_rbf_posterior": 0, "fused_obs_loglik": 0}
 
 #: Particles per block that the launchers take; 0 lets them choose from P.
@@ -75,6 +79,15 @@ def fused_x_posterior_plain(Xin_c, Xstar, Axc, Kxc_inv, inv_lengthscales,
     ks = _star_plain(Xin_c * inv_lengthscales, Xstar * inv_lengthscales,
                      n_valid, Xin_c * w, Xstar * w, lin_w[-1] ** 2)
     return _mean_quad(ks, Axc, Kxc_inv)
+
+
+def fused_x_posterior_classes_plain(Xin_c, Xstar, Axc, Kxc_inv, inv_lengthscales,
+                                    lin_w, n_valid: int):
+    """The per-class plain versions, stacked: (mean (C, P, d), quad (C, P))."""
+    outs = [fused_x_posterior_plain(Xin_c[ci], Xstar, Axc[ci], Kxc_inv[ci],
+                                    inv_lengthscales, lin_w, n_valid)
+            for ci in range(Xin_c.shape[0])]
+    return torch.stack([m for m, _ in outs]), torch.stack([q for _, q in outs])
 
 
 def fused_obs_loglik_plain(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2):
@@ -137,15 +150,17 @@ def _scratch(dev, stream, n_partial: int, n_ticket: int):
     return partial, ticket
 
 
-def _plan(lib, name, N, Dout, P, tile, dev, stream):
-    """The launcher's tile and splits for this call, and the partial sums
-    and tickets that split passes need (None when unsplit)."""
-    plan = (ctypes.c_int * 3)()
-    _raise_on_error(name, lib.gp_plan(N, Dout, P, tile, _sm_count(dev.index), plan))
-    tp, splits, tiles = plan
+def _plan(lib, name, N, Dout, P, tile, dev, stream, C=1, one_pass=False):
+    """The launcher's tile, splits and design (one pass or the streamed
+    core) for this call, and the partial sums and tickets that split
+    passes need (None when unsplit)."""
+    plan = (ctypes.c_int * 4)()
+    _raise_on_error(name, lib.gp_plan(N, Dout, P, C, tile, int(one_pass),
+                                      _sm_count(dev.index), plan))
+    tp, splits, tiles, one = plan
     if splits == 1:
-        return tp, 1, None, None
-    return (tp, splits, *_scratch(dev, stream, 2 * splits * P, tiles))
+        return tp, 1, one, None, None
+    return (tp, splits, one, *_scratch(dev, stream, 2 * splits * P * C, tiles * C))
 
 
 def _ptr(t):
@@ -153,35 +168,41 @@ def _ptr(t):
 
 
 def _posterior_cuda(name, Xtrain, Xstar, A, Kinv, inv_ls, lin_w, n_valid,
-                    has_linear, tile=0, lib=None):
-    """K1 or K1' on the card; ``tile`` (see ``TILES``) and ``lib`` (a build
-    variant's library) are for measurement."""
+                    has_linear, tile=0, one_pass=True, lib=None):
+    """K1 or K1' on the card over C stacked class blocks, Xtrain (C, N, d),
+    A (C, N, Dout), Kinv (C, N, N): (mean (C, P, Dout), quad (C, P)) in one
+    launch.  K1 takes the one-pass design while N + Dout <= 256 (the CUDA
+    source's ``ONEPASS_COLS``, applied by ``gp_plan``); ``one_pass=False``
+    forces the streamed core, and it, ``tile`` (see ``TILES``) and ``lib``
+    (a build variant's library) are for measurement."""
     from ._build import library
 
-    N, d = Xtrain.shape
-    P, Dout = Xstar.shape[0], A.shape[1]
+    C, N, d = Xtrain.shape
+    P, Dout = Xstar.shape[0], A.shape[2]
     dev = Xstar.device
-    shapes = dict(Xtrain=(Xtrain, (N, d)), Xstar=(Xstar, (P, d)), A=(A, (N, Dout)),
-                  Kinv=(Kinv, (N, N)), inv_lengthscales=(inv_ls, (d,)))
+    shapes = dict(Xtrain=(Xtrain, (C, N, d)), Xstar=(Xstar, (P, d)), A=(A, (C, N, Dout)),
+                  Kinv=(Kinv, (C, N, N)), inv_lengthscales=(inv_ls, (d,)))
     if has_linear:
         shapes["lin_w"] = (lin_w, (d + 1,))
     _check(name, dev, **shapes)
     _check_tile(name, tile)
-    if not 0 <= n_valid <= N or N < 1:
-        raise ValueError(f"{name}: need 1 <= N and 0 <= n_valid <= N, got N={N}, n_valid={n_valid}")
-    mean = torch.empty(P, Dout, dtype=torch.float32, device=dev)
-    quad = torch.empty(P, dtype=torch.float32, device=dev)
+    if not 0 <= n_valid <= N or N < 1 or C < 1:
+        raise ValueError(f"{name}: need 1 <= C, 1 <= N and 0 <= n_valid <= N, got C={C}, "
+                         f"N={N}, n_valid={n_valid}")
+    mean = torch.empty(C, P, Dout, dtype=torch.float32, device=dev)
+    quad = torch.empty(C, P, dtype=torch.float32, device=dev)
     if P == 0:
         return mean, quad
     lib = library() if lib is None else lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        tp, splits, partial, ticket = _plan(lib, name, N, Dout, P, tile, dev, stream)
+        tp, splits, one, partial, ticket = _plan(lib, name, N, Dout, P, tile, dev, stream,
+                                                 C, one_pass and has_linear)
         rc = lib.gp_posterior_launch(
             Xtrain.data_ptr(), Xstar.data_ptr(), inv_ls.data_ptr(),
             lin_w.data_ptr() if has_linear else None, A.data_ptr(), Kinv.data_ptr(),
-            mean.data_ptr(), quad.data_ptr(), N, P, d, Dout, n_valid,
-            int(has_linear), tp, splits, _ptr(partial), _ptr(ticket), stream)
+            mean.data_ptr(), quad.data_ptr(), N, P, d, Dout, n_valid, C,
+            int(has_linear), tp, one, splits, _ptr(partial), _ptr(ticket), stream)
     _raise_on_error(name, rc)
     LAUNCHES[name] += 1
     return mean, quad
@@ -195,8 +216,9 @@ def fused_rbf_posterior(Xtrain, Xstar, Ay, Kinv, inv_lengthscales):
     """
     if _on_cpu(Xtrain, Xstar, Ay, Kinv, inv_lengthscales):
         return fused_rbf_posterior_plain(Xtrain, Xstar, Ay, Kinv, inv_lengthscales)
-    return _posterior_cuda("fused_rbf_posterior", Xtrain, Xstar, Ay, Kinv,
-                           inv_lengthscales, None, Xtrain.shape[0], False)
+    mean, quad = _posterior_cuda("fused_rbf_posterior", Xtrain[None], Xstar, Ay[None],
+                                 Kinv[None], inv_lengthscales, None, Xtrain.shape[0], False)
+    return mean[0], quad[0]
 
 
 def fused_x_posterior(Xin_c, Xstar, Axc, Kxc_inv, inv_lengthscales, lin_w,
@@ -212,6 +234,20 @@ def fused_x_posterior(Xin_c, Xstar, Axc, Kxc_inv, inv_lengthscales, lin_w,
     if _on_cpu(Xin_c, Xstar, Axc, Kxc_inv, inv_lengthscales, lin_w):
         return fused_x_posterior_plain(Xin_c, Xstar, Axc, Kxc_inv,
                                        inv_lengthscales, lin_w, n_valid)
+    mean, quad = _posterior_cuda("fused_x_posterior", Xin_c[None], Xstar, Axc[None],
+                                 Kxc_inv[None], inv_lengthscales, lin_w, n_valid, True)
+    return mean[0], quad[0]
+
+
+def fused_x_posterior_classes(Xin_c, Xstar, Axc, Kxc_inv, inv_lengthscales, lin_w,
+                              n_valid: int):
+    """Dynamics-GP posterior for EVERY class block at once, as the filter
+    step calls it: ``Xin_c`` (C, N, din), ``Axc`` (C, N, d), ``Kxc_inv``
+    (C, N, N) -> (mean (C, P, d), quad (C, P)), what ``fused_x_posterior``
+    gives class by class, in one kernel launch on the card."""
+    if _on_cpu(Xin_c, Xstar, Axc, Kxc_inv, inv_lengthscales, lin_w):
+        return fused_x_posterior_classes_plain(Xin_c, Xstar, Axc, Kxc_inv,
+                                               inv_lengthscales, lin_w, n_valid)
     return _posterior_cuda("fused_x_posterior", Xin_c, Xstar, Axc, Kxc_inv,
                            inv_lengthscales, lin_w, n_valid, True)
 
@@ -257,7 +293,7 @@ def _obs_loglik_cuda(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2, tile=0,
     lib = library() if lib is None else lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        tp, splits, partial, ticket = _plan(lib, name, N, D, P, tile, dev, stream)
+        tp, splits, _, partial, ticket = _plan(lib, name, N, D, P, tile, dev, stream)
         rc = lib.obs_loglik_launch(
             Xtrain.data_ptr(), Xstar.data_ptr(), inv_lengthscales.data_ptr(),
             Ay.data_ptr(), Kinv.data_ptr(), z.data_ptr(), lam2.data_ptr(),

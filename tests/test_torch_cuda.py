@@ -249,3 +249,86 @@ def test_cuda_split_passes_repeat_exactly():
             again = kernel(*args)
             for a, b in zip(first, again):
                 assert torch.equal(a, b)
+
+
+def _class_inputs(C, N, P, d, seed):
+    """C class blocks of training rows, weights and Kinv, stacked, with
+    shared particles and hyperparameters, on the card."""
+    dev = _cuda_or_skip()
+    blocks = [_inputs(N, P if c == 0 else 1, d, seed=seed + c) for c in range(C)]
+    t = {k: _t(np.stack([b[k] for b in blocks]), dev) for k in ("Xt", "A", "Kinv")}
+    t.update({k: _t(blocks[0][k], dev) for k in ("Xs", "inv_ls", "lin_w")})
+    return t
+
+
+def _check_classes_against_f64(t, got, n_valid):
+    """Each class of a class-batched K1 call within the fp32 summation
+    bound of its plain version run in float64."""
+    for c in range(t["Xt"].shape[0]):
+        base = [t["Xt"][c], t["Xs"], t["A"][c], t["Kinv"][c], t["inv_ls"]]
+        ref64 = tgp.fused_x_posterior_plain(*(a.double() for a in base), t["lin_w"].double(),
+                                            n_valid)
+        bounds = _fp32_bounds(*base, lin_w=t["lin_w"], n_valid=n_valid)
+        for g, r64, b in zip((got[0][c], got[1][c]), ref64, bounds):
+            assert torch.isfinite(g).all()
+            assert torch.all((g.double() - r64).abs() <= b + 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,N,P,d", [
+    (2, 236, 10_000, 2),    # the path: the headline's two classes, one filter
+    (2, 236, 120_000, 2),   # the banked guard's 12 x 10,000
+    (2, 236, 64_000, 2),    # the fleet's 64 x 1,000
+    (8, 118, 10_000, 3),    # c8: eight classes, 121 columns
+    (2, 236, 10_000, 4),    # d4: 240 columns
+    (3, 254, 1000, 2),      # N + Dout exactly at the one-pass limit
+    (2, 255, 1000, 2),      # one past it: the streamed core
+])
+def test_cuda_x_posterior_classes_match_plain(C, N, P, d):
+    """K1 over C classes in one launch: each class within the fp32 bound of
+    its float64 plain version, the same bits on a repeat call, and (on the
+    one-pass design, whose plan does not depend on C) the same bits as the
+    per-class call."""
+    from gpmdm_tpu_torch.ops._build import library
+
+    t = _class_inputs(C, N, P, d, seed=20)
+    args = (t["Xt"], t["Xs"], t["A"], t["Kinv"], t["inv_ls"], t["lin_w"], N - 3)
+    tgp.reset_launches()
+    got = tgp.fused_x_posterior_classes(*args)
+    assert tgp.LAUNCHES["fused_x_posterior"] == 1
+    assert got[0].shape == (C, P, D_OUT) and got[1].shape == (C, P)
+    _check_classes_against_f64(t, got, N - 3)
+    again = tgp.fused_x_posterior_classes(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = tgp.fused_x_posterior_classes_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, plain):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    dev = t["Xs"].device
+    one = tgp._plan(library(), "fused_x_posterior", N, D_OUT, P, 0, dev,
+                    torch.cuda.current_stream(dev).cuda_stream, C, True)[2]
+    if one:
+        for c in range(C):
+            one = tgp.fused_x_posterior(t["Xt"][c], t["Xs"], t["A"][c], t["Kinv"][c],
+                                        t["inv_ls"], t["lin_w"], N - 3)
+            assert torch.equal(one[0], got[0][c]) and torch.equal(one[1], got[1][c])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("one_pass", [True, False])
+def test_cuda_x_posterior_classes_take_offset_views(one_pass):
+    """Stacked class blocks whose Kinv starts off a 16-byte boundary take
+    the scalar loads, on both designs, and match the aligned call."""
+    C, N, P, d = 3, 128, 700, 2
+    t = _class_inputs(C, N, P, d, seed=30)
+    kinv = torch.empty(C * N * N + 1, device=t["Kinv"].device)[1:].view(C, N, N)
+    kinv.copy_(t["Kinv"])
+    assert kinv.is_contiguous() and kinv.data_ptr() % 16
+    args = [t["Xt"], t["Xs"], t["A"], t["Kinv"], t["inv_ls"], t["lin_w"], N]
+    want = tgp._posterior_cuda("fused_x_posterior", *args, True, one_pass=one_pass)
+    args[3] = kinv
+    got = tgp._posterior_cuda("fused_x_posterior", *args, True, one_pass=one_pass)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    _check_classes_against_f64(t, got, N)

@@ -3,7 +3,8 @@ few CUDA features they use, against float64 and numpy references.
 
 ``gpmdm_tpu_torch/ops/csrc/gp_posterior.cu`` and ``resample_rank.cu`` are
 compiled with g++ against stand-ins for the CUDA runtime: one
-``std::thread`` per CUDA thread, a barrier for ``__syncthreads``, static
+``std::thread`` per CUDA thread (blocks of a grid in turn, the class axis
+included), a barrier for ``__syncthreads``, static
 buffers for the shared memory, ``__atomic_fetch_add`` for ``atomicAdd``,
 and warp shuffles and ballots through a per-warp barrier and an exchange
 buffer.  The sources' asynchronous copies are plain copies off the card
@@ -34,6 +35,7 @@ STUB = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <mutex>
 #define __global__
 #define __device__
 #define __host__
@@ -43,6 +45,7 @@ STUB = r"""
 struct uint3_ { unsigned x, y, z; };
 extern thread_local uint3_ threadIdx;
 extern thread_local uint3_ blockIdx;
+extern thread_local uint3_ gridDim;
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) int4 { int x, y, z, w; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
@@ -53,12 +56,27 @@ extern std::barrier<>* g_barrier;
 extern std::barrier<>* g_warp_barrier[32];
 extern int g_exchange[32][32];
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+inline void __syncwarp() { g_warp_barrier[threadIdx.x / 32]->arrive_and_wait(); }
+// bar.sync id, n: the first thread to arrive makes the n-thread barrier
+extern std::barrier<>* g_named_barrier[16];
+extern std::mutex g_named_mutex;
+inline void __named_barrier_sync(int id, int n) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lock(g_named_mutex);
+    if (!g_named_barrier[id]) g_named_barrier[id] = new std::barrier<>(n);
+    b = g_named_barrier[id];
+  }
+  b->arrive_and_wait();
+}
 template <typename T> cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline void __threadfence() {}
 template <typename T> T __ldcg(const T* p) { return *p; }
+template <typename T> T __ldg(const T* p) { return *p; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 // every lane of the warp posts a value, then reads lane src's
 inline int warp_exchange(int v, int src) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
@@ -97,8 +115,11 @@ HARNESS = r"""
 #include "cuda_runtime.h"
 thread_local uint3_ threadIdx;
 thread_local uint3_ blockIdx;
+thread_local uint3_ gridDim;
 std::barrier<>* g_barrier;
 std::barrier<>* g_warp_barrier[32];
+std::barrier<>* g_named_barrier[16];
+std::mutex g_named_mutex;
 int g_exchange[32][32];
 alignas(16) float smem[232448 / 4];
 #include "kernels.cpp"
@@ -106,9 +127,10 @@ alignas(16) float smem[232448 / 4];
 
 // One std::thread per CUDA thread of a block; the threads walk the grid's
 // blocks in order, with a barrier between blocks.
-template <typename F> void run_grid(int gx, int gy, F body, int nthreads) {
+template <typename F> void run_grid(int gx, int gy, int gz, F body, int nthreads) {
   std::barrier<> bar(nthreads);
   g_barrier = &bar;
+  for (auto& b : g_named_barrier) b = nullptr;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   for (int w = 0; w < nthreads / 32; ++w) {
     warps.emplace_back(new std::barrier<>(32));
@@ -118,13 +140,16 @@ template <typename F> void run_grid(int gx, int gy, F body, int nthreads) {
   for (int t = 0; t < nthreads; ++t)
     ts.emplace_back([&, t] {
       threadIdx.x = t;
-      for (int by = 0; by < gy; ++by)
-        for (int bx = 0; bx < gx; ++bx) {
-          blockIdx.x = bx;
-          blockIdx.y = by;
-          body();
-          bar.arrive_and_wait();
-        }
+      gridDim = {(unsigned)gx, (unsigned)gy, (unsigned)gz};
+      for (int bz = 0; bz < gz; ++bz)
+        for (int by = 0; by < gy; ++by)
+          for (int bx = 0; bx < gx; ++bx) {
+            blockIdx.x = bx;
+            blockIdx.y = by;
+            blockIdx.z = bz;
+            body();
+            bar.arrive_and_wait();
+          }
     });
   for (auto& th : ts) th.join();
 }
@@ -149,40 +174,71 @@ int run_rank(char** argv) {
   auto s = read_file<int>(argv[2], (size_t)B * Pb);
   std::vector<long long> idx((size_t)B * Pb, -7);
   const int blocks = (Pb + RANK_RANGE - 1) / RANK_RANGE;
-  run_grid(blocks, B, [&] { resample_rank_kernel(s.data(), idx.data(), Pb); }, RANK_NT);
+  run_grid(blocks, B, 1, [&] { resample_rank_kernel(s.data(), idx.data(), Pb); }, RANK_NT);
   write_file(argv[3], idx);
   printf("blocks_per_bank %d\n", blocks);
   return 0;
 }
 
-// The kernel of kind K over P particles as gp_plan lays it out for a card
-// of sms SMs (0: one block per particle tile), with the harness's dynamic
-// shared memory cut to what the launcher asks for: a canary past that must
-// survive.  Returns the bytes asked for, or -1 if the canary died.
+// Fills the harness's shared memory past the launcher's request with a
+// canary; canary_ok checks that it survived.
+void set_canary(size_t bytes) {
+  for (size_t i = bytes / sizeof(float); i < sizeof(smem) / sizeof(float); ++i) smem[i] = -12345.f;
+}
+bool canary_ok(size_t bytes) {
+  for (size_t i = bytes / sizeof(float); i < sizeof(smem) / sizeof(float); ++i)
+    if (smem[i] != -12345.f) return false;
+  return true;
+}
+
+// The kernel of kind K over C class blocks of P particles as gp_plan lays
+// it out for a card of sms SMs (0: one block per particle tile), with the
+// harness's dynamic shared memory cut to what the launcher asks for: a
+// canary past that must survive.  Returns the bytes asked for, or -1 if
+// the canary died or a ticket was left wrong.
 template <int TP, int K>
-long run_core(int splits, int tiles, const float* xt, const float* xs, const float* ils,
+long run_core(int splits, int tiles, int C, const float* xt, const float* xs, const float* ils,
               const float* lw, const float* A, const float* Kv, const float* z,
               const float* l2, float* o1, float* o2, int N, int P, int d, int D, int nv, int Pb) {
   const size_t bytes = core_smem_bytes<TP>(d, K == KIND_X, K == KIND_OBS);
-  const size_t n = bytes / sizeof(float), cap = sizeof(smem) / sizeof(float);
-  for (size_t i = n; i < cap; ++i) smem[i] = -12345.f;
-  std::vector<float> partial((size_t)2 * splits * P, -7.f);
-  std::vector<int> ticket(tiles, 0);
-  run_grid(tiles, splits, [&] { posterior_core<TP, K>(xt, xs, ils, lw, A, Kv, z, l2, o1, o2, N, P, d, D, nv, Pb, splits, partial.data(), ticket.data()); }, NT);
-  for (size_t i = n; i < cap; ++i)
-    if (smem[i] != -12345.f) return -1;
+  set_canary(bytes);
+  std::vector<float> partial((size_t)2 * splits * P * C, -7.f);
+  std::vector<int> ticket((size_t)tiles * C, 0);
+  run_grid(tiles, splits, C, [&] { posterior_core<TP, K>(xt, xs, ils, lw, A, Kv, z, l2, o1, o2, N, P, d, D, nv, Pb, splits, partial.data(), ticket.data()); }, NT);
+  if (!canary_ok(bytes)) return -1;
   for (int c : ticket)  // the last block of each tile sets its ticket back to 0
     if (c != 0) return -1;
   return (long)bytes;
 }
 
-long run_any(bool lin, bool obs, int tile, int sms, const float* xt, const float* xs,
-             const float* ils, const float* lw, const float* A, const float* Kv, const float* z,
-             const float* l2, float* o1, float* o2, int N, int P, int d, int D, int nv, int Pb) {
-  int plan[3];
-  if (gp_plan(N, D, P, tile, sms, plan) != 0) return -1;
-  printf("tile %d splits %d\n", plan[0], plan[1]);
-#define GO(TP, K) run_core<TP, K>(plan[1], plan[2], xt, xs, ils, lw, A, Kv, z, l2, o1, o2, N, P, d, D, nv, Pb)
+// x_onepass over C class blocks, one block per particle tile and class.
+template <int TP, int NTH>
+long run_onepass(int tiles, int C, const float* xt, const float* xs, const float* ils,
+                 const float* lw, const float* A, const float* Kv, float* o1, float* o2, int N,
+                 int P, int d, int D, int nv) {
+  const size_t bytes = onepass_smem_bytes<TP, NTH>(N, d);
+  if (bytes > sizeof(smem)) return -1;
+  set_canary(bytes);
+  run_grid(tiles, C, 1, [&] { x_onepass<TP, NTH>(xt, xs, ils, lw, A, Kv, o1, o2, N, P, d, D, nv); }, NTH);
+  return canary_ok(bytes) ? (long)bytes : -1;
+}
+
+long run_any(bool lin, bool obs, int tile, int sms, int C, int one_pass, const float* xt,
+             const float* xs, const float* ils, const float* lw, const float* A, const float* Kv,
+             const float* z, const float* l2, float* o1, float* o2, int N, int P, int d, int D,
+             int nv, int Pb) {
+  int plan[4];
+  if (gp_plan(N, D, P, C, tile, one_pass, sms, plan) != 0) return -1;
+  printf("tile %d splits %d one_pass %d\n", plan[0], plan[1], plan[3]);
+  if (plan[3]) {
+    if (!lin || obs) return -1;
+#define ONE(TP, NTH) run_onepass<TP, NTH>(plan[2], C, xt, xs, ils, lw, A, Kv, o1, o2, N, P, d, D, nv)
+    const bool narrow = onepass_cols(N + D) == 128;
+    if (plan[0] == 64) return narrow ? ONE(64, 128) : ONE(64, 256);
+    return narrow ? ONE(128, 256) : ONE(128, 512);
+#undef ONE
+  }
+#define GO(TP, K) run_core<TP, K>(plan[1], plan[2], C, xt, xs, ils, lw, A, Kv, z, l2, o1, o2, N, P, d, D, nv, Pb)
   if (plan[0] == 64) return obs ? GO(64, KIND_OBS) : lin ? GO(64, KIND_X) : GO(64, KIND_RBF);
   return obs ? GO(128, KIND_OBS) : lin ? GO(128, KIND_X) : GO(128, KIND_RBF);
 #undef GO
@@ -202,24 +258,25 @@ int run_obs_file(char** argv) {
   size_t off = 0;
   for (int k = 0; k < 7; ++k) { ptr[k] = in.data() + off; off += sizes[k]; }
   std::vector<float> quad(P, -7.f), qres(P, -7.f);
-  if (run_any(false, true, tile, sms, ptr[0], ptr[1], ptr[2], nullptr, ptr[3], ptr[4], ptr[5], ptr[6],
-              quad.data(), qres.data(), N, P, d, D, N, P / B) < 0) return 3;
+  if (run_any(false, true, tile, sms, 1, 0, ptr[0], ptr[1], ptr[2], nullptr, ptr[3], ptr[4], ptr[5],
+              ptr[6], quad.data(), qres.data(), N, P, d, D, N, P / B) < 0) return 3;
   quad.insert(quad.end(), qres.begin(), qres.end());
   write_file(argv[3], quad);
   return 0;
 }
 
-// N P d D n_valid linear obs tile sms: seeded inputs, float64 reference
+// N P d D n_valid linear obs tile sms C one_pass: seeded inputs for C class
+// blocks (K1; C = 1 otherwise), float64 reference
 int main(int argc, char** argv) {
   if (std::string(argv[1]) == "rank") return run_rank(argv);
   if (std::string(argv[1]) == "obs") return run_obs_file(argv);
   const int N = atoi(argv[1]), P = atoi(argv[2]), d = atoi(argv[3]), D = atoi(argv[4]),
             nv = atoi(argv[5]), lin = atoi(argv[6]), obs = atoi(argv[7]), tile = atoi(argv[8]),
-            sms = atoi(argv[9]);
+            sms = atoi(argv[9]), C = atoi(argv[10]), one_pass = atoi(argv[11]);
   std::mt19937 rng(N * 131 + P);
   std::normal_distribution<float> nd;
-  std::vector<float> xt((size_t)N * d), xs((size_t)P * d), A((size_t)N * D), K((size_t)N * N),
-      ils(d), lw(d + 1), z(D), l2(D);
+  std::vector<float> xt((size_t)C * N * d), xs((size_t)P * d), A((size_t)C * N * D),
+      K((size_t)C * N * N), ils(d), lw(d + 1), z(D), l2(D);
   for (auto& v : xt) v = nd(rng);
   for (auto& v : xs) v = nd(rng);
   for (auto& v : A) v = nd(rng);
@@ -228,41 +285,48 @@ int main(int argc, char** argv) {
   for (auto& v : lw) v = std::exp(0.3f * nd(rng));
   for (auto& v : z) v = nd(rng);
   for (auto& v : l2) v = std::exp(nd(rng));
-  std::vector<double> ks((size_t)N * P), mean((size_t)P * D, 0), quad(P, 0), qres(P, 0);
-  for (int i = 0; i < N; ++i)
-    for (int p = 0; p < P; ++p) {
-      double sq = 0, l = 0;
-      for (int k = 0; k < d; ++k) {
-        const double df = (double)(xt[i * d + k] * ils[k]) - (double)(xs[p * d + k] * ils[k]);
-        sq += df * df;
-        l += (double)(xt[i * d + k] * lw[k]) * (double)(xs[p * d + k] * lw[k]);
+  std::vector<double> mean((size_t)C * P * D, 0), quad((size_t)C * P, 0), qres(P, 0);
+  for (int c = 0; c < C; ++c) {
+    const float *xc = xt.data() + (size_t)c * N * d, *Ac = A.data() + (size_t)c * N * D,
+                *Kc = K.data() + (size_t)c * N * N;
+    std::vector<double> ks((size_t)N * P);
+    for (int i = 0; i < N; ++i)
+      for (int p = 0; p < P; ++p) {
+        double sq = 0, l = 0;
+        for (int k = 0; k < d; ++k) {
+          const double df = (double)(xc[i * d + k] * ils[k]) - (double)(xs[p * d + k] * ils[k]);
+          sq += df * df;
+          l += (double)(xc[i * d + k] * lw[k]) * (double)(xs[p * d + k] * lw[k]);
+        }
+        ks[(size_t)i * P + p] = i < nv ? std::exp(-sq) + (lin ? l + (double)lw[d] * lw[d] : 0.0) : 0.0;
       }
-      ks[(size_t)i * P + p] = i < nv ? std::exp(-sq) + (lin ? l + (double)lw[d] * lw[d] : 0.0) : 0.0;
-    }
-  for (int p = 0; p < P; ++p) {
-    for (int j = 0; j < D; ++j)
-      for (int i = 0; i < N; ++i) mean[p * D + j] += ks[(size_t)i * P + p] * A[(size_t)i * D + j];
-    for (int i = 0; i < N; ++i) {
-      double g = 0;
-      for (int m = 0; m < N; ++m) g += K[(size_t)i * N + m] * ks[(size_t)m * P + p];
-      quad[p] += ks[(size_t)i * P + p] * g;
-    }
-    for (int j = 0; j < D; ++j) {
-      const double df = mean[p * D + j] - z[j];
-      qres[p] += l2[j] * df * df;
+    for (int p = 0; p < P; ++p) {
+      double* mp = mean.data() + ((size_t)c * P + p) * D;
+      for (int j = 0; j < D; ++j)
+        for (int i = 0; i < N; ++i) mp[j] += ks[(size_t)i * P + p] * Ac[(size_t)i * D + j];
+      for (int i = 0; i < N; ++i) {
+        double g = 0;
+        for (int m = 0; m < N; ++m) g += Kc[(size_t)i * N + m] * ks[(size_t)m * P + p];
+        quad[(size_t)c * P + p] += ks[(size_t)i * P + p] * g;
+      }
+      for (int j = 0; j < D; ++j) {
+        const double df = mp[j] - z[j];
+        qres[p] += l2[j] * df * df;
+      }
     }
   }
-  std::vector<float> o1(obs ? P : P * D, -7.f), o2(P, -7.f);
-  const long bytes = run_any(lin, obs, tile, sms, xt.data(), xs.data(), ils.data(), lw.data(), A.data(),
-                             K.data(), z.data(), l2.data(), o1.data(), o2.data(), N, P, d, D, nv, P);
+  std::vector<float> o1(obs ? P : (size_t)C * P * D, -7.f), o2((size_t)C * P, -7.f);
+  const long bytes = run_any(lin, obs, tile, sms, C, one_pass, xt.data(), xs.data(), ils.data(),
+                             lw.data(), A.data(), K.data(), z.data(), l2.data(), o1.data(),
+                             o2.data(), N, P, d, D, nv, P);
   if (bytes < 0) { printf("shared memory written past the launcher's request, or a ticket left wrong\n"); return 3; }
   double err = 0;
   auto upd = [&](float got, double want) { err = std::max(err, std::abs(got - want) / (1 + std::abs(want))); };
   if (obs) {
     for (int p = 0; p < P; ++p) { upd(o1[p], quad[p]); upd(o2[p], qres[p]); }
   } else {
-    for (int i = 0; i < P * D; ++i) upd(o1[i], mean[i]);
-    for (int p = 0; p < P; ++p) upd(o2[p], quad[p]);
+    for (size_t i = 0; i < (size_t)C * P * D; ++i) upd(o1[i], mean[i]);
+    for (size_t i = 0; i < (size_t)C * P; ++i) upd(o2[i], quad[i]);
   }
   printf("smem_bytes %ld\nmax relative error %.3e\n", bytes, err);
   return err < 1e-4 ? 0 : 1;
@@ -271,9 +335,9 @@ int main(int argc, char** argv) {
 
 
 @pytest.fixture(scope="module")
-def emulator(tmp_path_factory):
-    cxx = shutil.which("g++")
-    if cxx is None:
+def emulation_dir(tmp_path_factory):
+    """The sources, the stand-ins and the harness, ready for g++."""
+    if shutil.which("g++") is None:
         pytest.skip("no g++ to compile the CPU emulation")
     work = tmp_path_factory.mktemp("cuda_emulation")
     for name, path in SOURCES.items():
@@ -282,13 +346,22 @@ def emulator(tmp_path_factory):
         (work / name).write_text(src)
     (work / "cuda_runtime.h").write_text(STUB)
     (work / "main.cpp").write_text(HARNESS)
-    proc = subprocess.run([cxx, "-std=c++20", "-O1", "-w", "-I", str(work), "main.cpp",
-                           "-o", "emu", "-lpthread"], cwd=work, capture_output=True,
-                          text=True, timeout=120)
+    return work
+
+
+def _compile(work, out, *defines):
+    proc = subprocess.run(["g++", "-std=c++20", "-O1", "-w", *(f"-D{m}" for m in defines),
+                           "-I", str(work), "main.cpp", "-o", out, "-lpthread"], cwd=work,
+                          capture_output=True, text=True, timeout=120)
     if proc.returncode != 0 and "barrier" in proc.stderr:
         pytest.skip("g++ lacks C++20 <barrier>")
     assert proc.returncode == 0, proc.stderr
-    return work / "emu"
+    return work / out
+
+
+@pytest.fixture(scope="module")
+def emulator(emulation_dir):
+    return _compile(emulation_dir, "emu")
 
 
 @pytest.mark.parametrize("N,P,d,D,n_valid,linear,obs", [
@@ -309,9 +382,20 @@ def emulator(tmp_path_factory):
     (70, 30, 6, 4, 70, 0, 1),       # K2 with d past the register path
 ])
 def test_cuda_source_under_cpu_emulation(emulator, N, P, d, D, n_valid, linear, obs):
-    proc = subprocess.run([str(emulator), *map(str, (N, P, d, D, n_valid, linear, obs, 0, 0))],
+    _emulate(emulator, N, P, d, D, n_valid, linear, obs)
+
+
+def _emulate(emulator, N, P, d, D, n_valid, linear, obs, tile=0, sms=0, C=1, one_pass=None):
+    """One launch under the emulation, held against float64 (the run fails
+    past 1e-4); its plan, ``(tile, splits, one_pass)``, and the shared
+    memory it asked for.  ``one_pass`` defaults to K1's launcher choice."""
+    one_pass = linear if one_pass is None else one_pass
+    proc = subprocess.run([str(emulator), *map(str, (N, P, d, D, n_valid, linear, obs, tile,
+                                                     sms, C, int(one_pass)))],
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    plan = re.search(r"tile (\d+) splits (\d+) one_pass (\d+)", proc.stdout)
+    return tuple(map(int, plan.groups())), int(re.search(r"smem_bytes (\d+)", proc.stdout)[1])
 
 
 @pytest.mark.parametrize("tile,sms", [(64, 0), (128, 0), (64, 132), (128, 132)])
@@ -322,25 +406,66 @@ def test_cuda_source_under_cpu_emulation(emulator, N, P, d, D, n_valid, linear, 
 ])
 def test_cuda_source_tiles_under_cpu_emulation(emulator, N, P, d, D, n_valid, linear, obs,
                                                tile, sms):
-    """Both particle tiles, each with one block per particle tile and with
-    its passes split over blocks as on a 132-SM card (the last block of a
-    tile adds the splits' sums and sets the tile's ticket back to 0)."""
-    proc = subprocess.run([str(emulator),
-                           *map(str, (N, P, d, D, n_valid, linear, obs, tile, sms))],
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    splits = int(re.search(r"splits (\d+)", proc.stdout)[1])
-    assert (splits > 1) == (sms > 0)
+    """Both particle tiles of the streamed core, each with one block per
+    particle tile and with its passes split over blocks as on a 132-SM card
+    (the last block of a tile adds the splits' sums and sets the tile's
+    ticket back to 0)."""
+    (_, splits, one), _ = _emulate(emulator, N, P, d, D, n_valid, linear, obs, tile, sms)
+    assert (splits > 1) == (sms > 0) and not one
+
+
+# x_onepass's star tile, rings and scaled training rows, in floats: N
+# rounded up to 16 rows x TP particles, two tiles of 16 rows x RC columns,
+# and two N x d
+def _onepass_bytes(N, d, tp, rc):
+    return 4 * (-(-N // 16) * 16 * tp + 2 * 16 * rc + 2 * N * d)
+
+
+@pytest.mark.parametrize("N,P,d,D,n_valid,C,tile,sms,rc", [
+    (236, 130, 2, 2, 236, 2, 0, 0, 256),     # the headline's classes, ragged last tile
+    (236, 130, 2, 2, 230, 3, 128, 132, 256),  # 128 x 256 (512 threads, warp pairs), masked rows
+    (118, 70, 3, 3, 118, 4, 0, 0, 128),      # c8's widths: 128 x 128 (256 threads, warp pairs)
+    (118, 200, 3, 3, 110, 2, 64, 0, 128),     # and 64 x 128 (128 threads)
+    (236, 40, 4, 4, 236, 1, 64, 0, 256),     # d4's widths, one class
+    (254, 65, 2, 2, 254, 2, 0, 0, 256),      # N + Dout exactly at the one-pass limit
+    (126, 40, 2, 2, 120, 2, 64, 0, 128),     # 128 columns exactly on the narrow block
+    (127, 40, 2, 2, 127, 2, 0, 0, 256),      # 129 columns: the wide block
+    (33, 20, 5, 5, 30, 2, 0, 0, 128),        # d past the register path, N one row past a tile
+])
+def test_onepass_k1_under_cpu_emulation(emulator, N, P, d, D, n_valid, C, tile, sms, rc):
+    """K1's one-pass design over C classes in one launch: no split at any
+    card size, and its star tile and rings stay inside the shared memory
+    it asks for (the canary past it survives)."""
+    (tp, splits, one), smem = _emulate(emulator, N, P, d, D, n_valid, 1, 0, tile, sms, C)
+    assert one == 1 and splits == 1 and tp == (tile or (128 if N + D <= 128 else 64))
+    assert smem == _onepass_bytes(N, d, tp, rc) <= 232448
+
+
+@pytest.mark.parametrize("N,P,d,D,n_valid,C,sms,one_pass", [
+    (255, 50, 2, 2, 253, 2, 0, 1),    # one column past the one-pass limit
+    (255, 50, 2, 2, 253, 2, 132, 1),  # and split over blocks, per class
+    (300, 40, 5, 5, 290, 1, 0, 1),    # past it with d past the register path
+    (300, 40, 5, 5, 290, 3, 132, 1),  # and split over blocks, three classes
+    (40, 50, 2, 2, 38, 3, 0, 0),      # forced on blocks that fit one pass:
+    (37, 50, 2, 5, 30, 1, 0, 0),      # masked rows, ragged particle tile
+    (236, 130, 2, 2, 236, 1, 0, 0),   # the bench asset's n_max
+    (90, 40, 5, 3, 85, 1, 0, 0),      # d past the register path
+])
+def test_k1_past_onepass_limit_takes_streamed_core(emulator, N, P, d, D, n_valid, C, sms,
+                                                   one_pass):
+    """Past N + Dout = 256 (or when forced) K1 runs on the streamed core,
+    every class in one launch along the grid's third axis, its generic-width
+    path with the linear term included."""
+    (_, splits, one), _ = _emulate(emulator, N, P, d, D, n_valid, 1, 0, 0, sms, C,
+                                   one_pass=one_pass)
+    assert one == 0 and (splits > 1) == (sms > 0)
 
 
 def _smem_bytes(emulator, N, d, Dout, has_linear, obs):
-    """Run one kernel at N training rows and 8 particles; the shared memory
-    that its launcher asks for (the run fails if the kernel writes past it
-    or misses the float64 reference)."""
-    proc = subprocess.run([str(emulator), *map(str, (N, 8, d, Dout, N, has_linear, obs, 0, 0))],
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    return int(re.search(r"smem_bytes (\d+)", proc.stdout)[1])
+    """Run one kernel on the streamed core at N training rows and 8
+    particles; the shared memory that its launcher asks for (the run fails
+    if the kernel writes past it or misses the float64 reference)."""
+    return _emulate(emulator, N, 8, d, Dout, N, has_linear, obs, one_pass=0)[1]
 
 
 @pytest.mark.parametrize("N,d,Dout,has_linear,obs", [
@@ -352,9 +477,10 @@ def _smem_bytes(emulator, N, d, Dout, has_linear, obs):
 ])
 def test_launchers_refuse_only_star_tiles_that_do_not_fit(emulator, N, d, Dout, has_linear,
                                                           obs):
-    """No star tile is held any more, so no N is refused: a block's shared
-    memory is the same at N as at 8 training rows, and the kernel stays
-    inside it and matches float64."""
+    """The streamed core holds no star tile, so no N is refused: a block's
+    shared memory is the same at N as at 8 training rows, and the kernel
+    stays inside it and matches float64.  (K1's one-pass design holds its
+    star tile only while N + Dout <= 256: test_onepass_k1_under_cpu_emulation.)"""
     assert _smem_bytes(emulator, N, d, Dout, has_linear, obs) == _smem_bytes(
         emulator, 8, d, Dout, has_linear, obs)
 

@@ -5,6 +5,8 @@ tests/test_torch_cuda.py.
 
 Both sides run in float32 on the same inputs, made from a seed with numpy.
 Tolerance rtol 1e-5, atol 1e-6: the two sides sum in different orders.
+The class-batched dynamics function must equal the per-class calls bit for
+bit: its plain version is their stack.
 """
 
 import jax.numpy as jnp
@@ -63,17 +65,60 @@ def test_fused_rbf_posterior_plain_matches_pallas(interpret, N, P, d):
         _close(g, w)
 
 
-@pytest.mark.parametrize("N,P,d", CASES)
+# K1's cases with C class blocks: one class (ids as CASES), and two and
+# three classes through the class-batched function in one call
+X_CASES = ([pytest.param(*c, 1, id="-".join(map(str, c))) for c in CASES]
+           + [pytest.param(*c, C, id="-".join(map(str, c)) + f"-C{C}")
+              for C in (2, 3) for c in CASES])
+
+
+@pytest.mark.parametrize("N,P,d,C", X_CASES)
 @pytest.mark.parametrize("n_cut", [0, 7])
-def test_fused_x_posterior_plain_matches_pallas(interpret, N, P, d, n_cut):
-    """Includes n_valid < N: the masked rows must contribute exactly 0."""
-    x = _inputs(N, P, d, seed=2 * N + P + d)
-    keys = ("Xt", "Xs", "A", "Kinv", "inv_ls", "lin_w")
+def test_fused_x_posterior_plain_matches_pallas(interpret, N, P, d, C, n_cut):
+    """Includes n_valid < N: the masked rows must contribute exactly 0.
+    ``fused_x_posterior_classes`` over C stacked class blocks (its own
+    training rows, weights and Kinv each; shared particles and
+    hyperparameters): every class equals the port's per-class call bit for
+    bit and matches the JAX package's per-class ``fused_x_posterior``;
+    class 0 (the C = 1 case's inputs) at the file's tolerance, the other
+    classes within the fp32 summation bound ``_fp32_bound`` (+ atol), since
+    two fp32 sums of N terms in different orders may differ by that much
+    where the terms cancel."""
+    blocks = [_inputs(N, P, d, seed=2 * N + P + d + 101 * ci) for ci in range(C)]
+    x = blocks[0]
     n_valid = N - n_cut
-    want = jgp.fused_x_posterior(*(jnp.asarray(x[k]) for k in keys), n_valid=n_valid)
-    got = tgp.fused_x_posterior(*(_t(x[k]) for k in keys), n_valid)
-    for g, w in zip(got, want):
-        _close(g, w)
+    stacked = [_t(np.stack([b[k] for b in blocks])) for k in ("Xt", "A", "Kinv")]
+    shared = [_t(x[k]) for k in ("Xs", "inv_ls", "lin_w")]
+    means, quads = tgp.fused_x_posterior_classes(stacked[0], shared[0], stacked[1], stacked[2],
+                                                 shared[1], shared[2], n_valid)
+    assert means.shape == (C, P, D_OUT) and quads.shape == (C, P)
+    for ci, b in enumerate(blocks):
+        want = jgp.fused_x_posterior(
+            *(jnp.asarray(v) for v in (b["Xt"], x["Xs"], b["A"], b["Kinv"], x["inv_ls"],
+                                       x["lin_w"])), n_valid=n_valid)
+        one = tgp.fused_x_posterior(_t(b["Xt"]), shared[0], _t(b["A"]), _t(b["Kinv"]),
+                                    shared[1], shared[2], n_valid)
+        bounds = _fp32_bound(b, x, n_valid)
+        for g, o, w, bound in zip((means[ci], quads[ci]), one, want, bounds):
+            assert torch.equal(g, o)
+            if ci == 0:
+                _close(g, w)
+            else:
+                assert np.all(np.abs(g.numpy() - np.asarray(w, np.float64)) <= bound + ATOL)
+
+
+def _fp32_bound(b, x, n_valid):
+    """Bounds on the error of any fp32 evaluation of K1's mean and quad, in
+    any order of summation: 2 N u times the sum of the terms' magnitudes
+    (u = 2^-24), from a float64 star kernel of the block ``b``."""
+    f = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    il, w = f(x["inv_ls"]), f(x["lin_w"])
+    xt, xs = f(b["Xt"]), f(x["Xs"])
+    sq = np.sum((xt[:, None, :] * il - xs[None, :, :] * il) ** 2, axis=2)
+    ks = np.abs(np.exp(-sq) + (xt * w[:-1]) @ (xs * w[:-1]).T + w[-1] ** 2)
+    ks[n_valid:] = 0.0
+    g = 2 * xt.shape[0] * 2.0 ** -24
+    return g * (ks.T @ np.abs(f(b["A"]))), g * np.sum(ks * (np.abs(f(b["Kinv"])) @ ks), axis=0)
 
 
 @pytest.mark.parametrize("N,P,d", CASES)
@@ -106,6 +151,8 @@ def test_cpu_wrappers_count_no_launches():
     x = _inputs(20, 10, 2, seed=6)
     tgp.fused_obs_loglik(*(_t(x[k]) for k in ("Xt", "Xs", "A", "Kinv", "inv_ls", "z", "lam2")))
     tgp.fused_x_posterior(*(_t(x[k]) for k in ("Xt", "Xs", "A", "Kinv", "inv_ls", "lin_w")), 20)
+    tgp.fused_x_posterior_classes(*(_t(x[k])[None] if k in ("Xt", "A", "Kinv") else _t(x[k])
+                                    for k in ("Xt", "Xs", "A", "Kinv", "inv_ls", "lin_w")), 20)
     assert all(v == 0 for v in tgp.LAUNCHES.values())
 
 

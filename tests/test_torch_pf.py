@@ -27,6 +27,7 @@ injected as per-frame noise.
   compared only after one step.
 """
 
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -36,6 +37,7 @@ import pytest
 import torch
 
 from gpmdm_tpu import GPMDM as JGPMDM
+from gpmdm_tpu import GPMDM_PF as JGPMDM_PF
 from gpmdm_tpu.config import PFConfig as JPFConfig
 from gpmdm_tpu.data import synthetic as jsynthetic
 from gpmdm_tpu.filter import particle_filter as jpf
@@ -212,6 +214,49 @@ def test_ten_frames_match_jax_f64(models, stream, jax_fused_in_f64, variant):
                         torch.as_tensor(np.array(log_T)), tcfg64, tcfg, noise=tnz)
     np.testing.assert_allclose(to.class_probs.numpy(), np.stack(jprobs), atol=1e-3)
     assert to.most_likely_class.tolist() == jmlc
+
+
+def test_pf_scan_masked_matches_jax_f64(models, stream, jax_fused_in_f64):
+    """A padded sequence, four valid frames then two masked, in float64:
+    the valid frames' readouts match JAX ``pf_scan_masked`` (its in-scan
+    draws, which the port gets injected by frame position, as in
+    test_ten_frames_match_jax_f64), and the masked frames leave the port's
+    state exactly where the four valid frames put it."""
+    jm, _ = models
+    (jcfg64, jparams, jpost), (tcfg64, tparams, tpost) = _f64_models(jm)
+    jcfg = JPFConfig(num_particles=P, pallas="on", precision="highest")
+    tcfg = PFConfig(num_particles=P, pallas="on")
+    log_T = jnp.log(jnp.asarray(TRANS, dtype=jnp.float64))
+    T, T_valid = 6, 4
+    s = jpf.pf_init(jpost, jm.layout.y_class_offsets, jax.random.PRNGKey(2), jcfg)
+    _, tnz = _jax_noise(s.key, T, jnp.float64)
+    Z = np.asarray(stream[:T], np.float64)
+    valid = np.arange(T) < T_valid
+    _, jo = jpf.pf_scan_masked(s, jnp.asarray(Z), jnp.asarray(valid), jpost, jparams, log_T,
+                               jcfg64, jcfg, pregen=False)
+    tlog_T = torch.as_tensor(np.array(log_T))
+    ts, to = tpf.pf_scan_masked(_to_torch_state(s), torch.as_tensor(Z), valid, tpost, tparams,
+                                tlog_T, tcfg64, tcfg, noise=tnz)
+    assert to.class_probs.shape == (T, 2)
+    np.testing.assert_allclose(to.class_probs.numpy()[:T_valid],
+                               np.asarray(jo.class_probs)[:T_valid], atol=1e-3)
+    assert (to.most_likely_class.tolist()[:T_valid]
+            == np.asarray(jo.most_likely_class).tolist()[:T_valid])
+    first = tpf._map(tnz, lambda a: a[:T_valid])
+    want, _ = tpf.pf_scan(_to_torch_state(s), torch.as_tensor(Z[:T_valid]), tpost, tparams,
+                          tlog_T, tcfg64, tcfg, noise=first)
+    for f in dataclasses.fields(tpf.PFState):
+        assert torch.equal(getattr(ts, f.name), getattr(want, f.name)), f.name
+
+
+def test_gpmdm_pf_properties_match_jax(models):
+    jm, tm = models
+    jflt = JGPMDM_PF(jm, TRANS, 100, seed=0)
+    tflt = GPMDM_PF(tm, TRANS, 100, seed=0)
+    for name in ("latent_dim", "observation_dim", "num_classes", "num_particles"):
+        assert getattr(tflt, name) == getattr(jflt, name), name
+    assert (tflt.latent_dim, tflt.observation_dim, tflt.num_classes) == (2, 35, 2)
+    assert str(tflt.dtype).removeprefix("torch.") == np.dtype(jflt.dtype).name
 
 
 @pytest.mark.parametrize("compat", [False, True])
