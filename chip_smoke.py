@@ -75,6 +75,26 @@ Phases, each printing one JSON line on stdout:
              frame accuracy and F1 are reported, not gated, beside the
              same guard on the plain PyTorch versions (pallas='off'; the
              fp32 sums in another order).
+9. train   - trains the bench_model.npz recipe on the card
+             (bench_assets/README.md: D = 35, d = 2, 2 classes, 4 x 60
+             frames each, sigma_n inits 0.1, f32, 300 Adam steps at lr
+             0.01) through GPMDM.train_adam, in memory only: no file is
+             written.  Fails unless all 300 losses are finite, the first
+             is within 1e-3 relative of the port's float64 loss at the
+             same PCA initialisation (computed on the host) and the last
+             within 5% of the committed asset's loss as the port computes
+             it on the card.  Reports the first step's seconds and steps/s
+             over the other 299 (each ends in a host read of the losses);
+             with --profile, device ms per step by kernel and the card's
+             busy share over 20 steps.
+10. train_guard - the model just trained, deployed exact, through
+             evaluate_pf_banked on the banked guard's 12 trials (P =
+             10,000, padded to 64 frames): the launch counters must rise
+             by exactly 64 for each of K1, K2 and K3.  Frame accuracy and
+             F1 are reported beside the committed asset's, not gated.
+11. train_n2048 - the n2048 recipe of tools/train_bench_assets.py (16
+             sequences of 64 frames a class, Ny = 2,048, f32): 20 Adam
+             steps; steps/s and the non-finite count.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -111,6 +131,13 @@ LARGE_N = (("n2048", "bench_model_n2048.npz", False), ("n5120", "bench_model_n51
 # output's median magnitude in float64
 CONDITIONED_RTOL = 1e-4
 TRANSITIONS = [[0.9, 0.1], [0.1, 0.9]]
+# the bench_model.npz recipe (bench_assets/README.md) and the n2048 recipe
+# (tools/train_bench_assets.py): sequences a class, frames a sequence, steps
+TRAIN_RECIPE = {"n_seqs": 4, "seq_len": 60, "steps": 300}
+N2048_RECIPE = {"n_seqs": 16, "seq_len": 64, "steps": 20}
+TRAIN_LR = 0.01
+TRAIN_FIRST_RTOL = 1e-3  # first f32 loss against the float64 loss
+TRAIN_FINAL_RTOL = 0.05  # final loss against the committed asset's
 # Published fp32 (non-tensor-core) peak and memory rate by part, from
 # NVIDIA's data sheets; the SXM part is the H100 "80GB HBM3".
 PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "": (67e12, 3.35e12)}
@@ -289,7 +316,7 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
-    from gpmdm_tpu_torch import GPMDM, GPMDM_PF, PFConfig
+    from gpmdm_tpu_torch import GPMDM, GPMDM_PF, PFConfig, TrainConfig
     from gpmdm_tpu_torch.bench_kernels import (RANK_SHAPES, conditioned, conditioned_classes,
                                                dirichlet_counts, gemm_yardstick, time_ms)
     from gpmdm_tpu_torch.data import synthetic
@@ -297,6 +324,8 @@ def main(argv) -> int:
     from gpmdm_tpu_torch.ops import _build
     from gpmdm_tpu_torch.ops import gp_posterior as gpk
     from gpmdm_tpu_torch.ops import resample as rs
+    from gpmdm_tpu_torch.train import trainer
+    from gpmdm_tpu_torch.utils.logging import MetricLogger
     from gpmdm_tpu_torch.utils.metrics import evaluate_pf, evaluate_pf_banked
 
     dev = torch.device("cuda:0")
@@ -554,6 +583,7 @@ def main(argv) -> int:
           "launches": banked_launches, "min_frame_acc": GUARD_MIN_FRAME_ACC})
     if not acc >= GUARD_MIN_FRAME_ACC:
         raise AssertionError(f"banked guard frame accuracy {acc} < {GUARD_MIN_FRAME_ACC}")
+    asset_guard = {"frame_acc": acc, "frame_f1": rep.frame_metrics["f1"]}
 
     _phase[0] = "fleet"
     Zf = Z[None, :FLEET_FRAMES].expand(FLEET_BANKS, FLEET_FRAMES, D)
@@ -647,12 +677,96 @@ def main(argv) -> int:
                          dtype=torch.float32)
     c8 = extra_asset("c8", "bench_model_c8.npz", Z8, te8, tel8, T8)
 
+    def recipe_model(recipe, dtype="float32", device=dev):
+        """A PCA-initialized model of the recipe (seed 0, the D of the bench
+        asset, d = 2, 2 classes, sigma_n inits 0.1), as the JAX package's
+        asset scripts build it."""
+        tr, tl, _, _ = synthetic.make_dataset(
+            n_classes=2, n_train_seqs=recipe["n_seqs"], n_test_seqs=1,
+            seq_len=recipe["seq_len"], D=cfg.D, seed=0)
+        m = GPMDM(D=cfg.D, d=2, n_classes=2, dtype=dtype, y_sigma_n_init=0.1,
+                  x_sigma_n_init=0.1, device=device)
+        for Y, c in zip(tr, tl):
+            m.add_data(Y, c)
+        m.init_X()
+        return m
+
+    def train(m, steps):
+        """``steps`` Adam steps through GPMDM.train_adam, the first alone:
+        (losses, seconds of the first step, steps/s over the rest), each
+        call timed by the trainer up to its host read of the losses."""
+        lg = MetricLogger(stream=None)
+        losses = m.train_adam(1, lr=TRAIN_LR, logger=lg)
+        first_s = 1.0 / lg.last("steps_per_sec")
+        losses += m.train_adam(steps - 1, lr=TRAIN_LR, logger=lg)
+        return np.asarray(losses), first_s, lg.last("steps_per_sec")
+
+    def profile_steps(m, steps):
+        """Device time by kernel over ``steps`` trainer steps from m's state
+        (the model itself is left as it is)."""
+        Yd = torch.as_tensor(m.get_Y(), device=dev)
+        tc = TrainConfig(num_steps=steps, lr=TRAIN_LR)
+        return profile(lambda: trainer.train_adam(m.params, Yd, m.config, m.layout, tc,
+                                                  opt_state=m._opt_state), steps, "step")
+
+    _phase[0] = "train"
+    loss64 = recipe_model(TRAIN_RECIPE, "float64", "cpu").gpdm_loss()
+    tm = recipe_model(TRAIN_RECIPE)
+    losses, first_s, steps_per_s = train(tm, TRAIN_RECIPE["steps"])
+    asset_loss = model.gpdm_loss()
+    nonfinite = int(np.sum(~np.isfinite(losses)))
+    first_rel = abs(losses[0] - loss64) / abs(loss64)
+    final_rel = abs(losses[-1] - asset_loss) / abs(asset_loss)
+    emit({"phase": "train", "Ny": tm.layout.Ny, "D": tm.D, "d": tm.d, "classes": tm.n_classes,
+          "steps": len(losses), "lr": TRAIN_LR, "first_step_s": first_s,
+          "steps_per_s": steps_per_s, "first_loss": float(losses[0]),
+          "first_loss_f64_host": loss64, "first_rel": first_rel,
+          "final_loss": float(losses[-1]), "asset_loss": asset_loss, "final_rel": final_rel,
+          "nonfinite": nonfinite, "device": kind, "nvidia_smi": smi})
+    if len(losses) != TRAIN_RECIPE["steps"] or nonfinite:
+        raise AssertionError(f"train: {nonfinite} non-finite of {len(losses)} losses")
+    if not first_rel <= TRAIN_FIRST_RTOL:
+        raise AssertionError(f"train: first loss {losses[0]} vs float64 {loss64}: "
+                             f"{first_rel:.2e} > {TRAIN_FIRST_RTOL}")
+    if not final_rel <= TRAIN_FINAL_RTOL:
+        raise AssertionError(f"train: final loss {losses[-1]} vs the asset's {asset_loss}: "
+                             f"{final_rel:.3f} > {TRAIN_FINAL_RTOL}")
+    if "--profile" in argv:
+        emit({"phase": "profile", "path": "train", "Ny": tm.layout.Ny,
+              **profile_steps(tm, 20)})
+
+    _phase[0] = "train_guard"
+    reset_launches()
+    rep = evaluate_pf_banked(tm, TRANSITIONS, q_seqs, q_labels, num_particles=N_PARTICLES,
+                             burn_in=5, seed=0, config=pfc)
+    train_launches = check_launches("train_guard", T_pad)
+    emit({"phase": "train_guard", "frame_acc": rep.frame_metrics["accuracy"],
+          "frame_f1": rep.frame_metrics["f1"], "trial_acc": rep.trial_metrics["accuracy"],
+          "frames": rep.total_frames, "banks": len(q_seqs), "particles_per_bank": N_PARTICLES,
+          "padded_frames": T_pad, "agg_fps": rep.fps, "launches": train_launches,
+          "asset_frame_acc": asset_guard["frame_acc"],
+          "asset_frame_f1": asset_guard["frame_f1"], "gated": False})
+    del tm
+
+    _phase[0] = "train_n2048"
+    big = recipe_model(N2048_RECIPE)
+    losses, first_s, steps_per_s = train(big, N2048_RECIPE["steps"])
+    emit({"phase": "train_n2048", "Ny": big.layout.Ny, "n_max": big.layout.n_max,
+          "steps": len(losses), "first_step_s": first_s, "steps_per_s": steps_per_s,
+          "first_loss": float(losses[0]), "final_loss": float(losses[-1]),
+          "nonfinite": int(np.sum(~np.isfinite(losses))), "device": kind, "nvidia_smi": smi})
+    if "--profile" in argv:
+        emit({"phase": "profile", "path": "train_n2048", "Ny": big.layout.Ny,
+              **profile_steps(big, 5)})
+    del big
+    torch.cuda.empty_cache()
+
     for k in kernels:
         n = k["name"]
         k["launches_by_phase"] = {"path": launches[n], "banked_guard": banked_launches[n],
                                   "fleet": fleet_launches[n], "d4_path": d4[0][n],
                                   "d4_banked_guard": d4[1][n], "c8_path": c8[0][n],
-                                  "c8_banked_guard": c8[1][n]}
+                                  "c8_banked_guard": c8[1][n], "train_guard": train_launches[n]}
 
     _phase[0] = "report"
     heavy = ("path_inputs", "conditioned_inputs")
@@ -666,10 +780,21 @@ def main(argv) -> int:
     return 0
 
 
-def profile(run, frames: int):
-    """Device time by kernel name over ``run()``, a steady window of
-    ``frames`` frames, run once before to warm up."""
+# kernel-name fragments by kind: cuSOLVER's potrf runs getrf-without-pivot
+# and syrk kernels; cuBLAS's trsm; the products (gemm, gemv, xmma)
+KERNEL_KINDS = (("cholesky (potrf)", ("potrf", "getrf", "syrk")),
+                ("triangular solve", ("trsm", "trsv")),
+                ("matmul", ("gemm", "gemv", "xmma", "dot_kernel")))
+
+
+def profile(run, n: int, unit: str = "frame"):
+    """Device time by kernel over ``run()``, a steady window of ``n`` frames
+    (or training steps), run once before to warm up; the kernels are also
+    summed by kind (``KERNEL_KINDS``, the rest "other").  Only device
+    events count: an operator's own device time is that of the kernels it
+    launched, which are listed already."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     run()
@@ -681,6 +806,8 @@ def profile(run, frames: int):
         wall = time.perf_counter() - t
     rows = []
     for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
@@ -688,11 +815,18 @@ def profile(run, frames: int):
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    return {"frames": frames, "wall_ms_per_frame": 1e3 * wall / frames,
-            "device_busy_ms_per_frame": busy_us / 1e3 / frames,
+    kinds = {}
+    for us, key, _ in rows:
+        kind = next((k for k, frags in KERNEL_KINDS if any(f in key.lower() for f in frags)),
+                    "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3 / n
+    return {f"{unit}s": n, f"wall_ms_per_{unit}": 1e3 * wall / n,
+            f"device_busy_ms_per_{unit}": busy_us / 1e3 / n,
             "device_busy_share": (busy_us / 1e6) / wall if wall > 0 else None,
-            "top": [{"name": k[:80], "device_ms_per_frame": us / 1e3 / frames,
-                     "calls_per_frame": n / frames} for us, k, n in rows[:15]]}
+            f"kernels_per_{unit}": sum(r[2] for r in rows) / n,
+            f"device_ms_per_{unit}_by_kind": kinds,
+            "top": [{"name": k[:80], f"device_ms_per_{unit}": us / 1e3 / n,
+                     f"calls_per_{unit}": c / n} for us, k, c in rows[:15]]}
 
 
 if __name__ == "__main__":

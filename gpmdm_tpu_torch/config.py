@@ -2,8 +2,8 @@
 
 The same fields, defaults and validation as ``gpmdm_tpu.config``
 (``GPMDMConfig``, ``PFConfig``), so a checkpoint's JSON config and a filter
-configuration mean the same thing in both packages.  The training
-configuration stays with the JAX package until training is ported.
+configuration mean the same thing in both packages, and ``TrainConfig``,
+the optimizer's settings.
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ class GPMDMConfig:
     sigma_n_num_Y / sigma_n_num_X: extra noise std on the Gram diagonals;
     class_jitter: jitter on each per-class dynamics Gram before inversion;
     flg_train_*: trainability flags; dtype: 'float32' | 'float64' |
-    'bfloat16'.  The hyperprior and deflation fields only matter to
-    training and are carried so that checkpoints round-trip.
+    'bfloat16'; hyperprior_*: the log-space hyperprior of the loss
+    (``models.core.hyperprior_penalty``); deflate_x_linear: factor the
+    dynamics Gram without its linear term (``x_block_terms_deflated``).
     """
 
     D: int
@@ -57,6 +58,11 @@ class GPMDMConfig:
     hyperprior_centers: Tuple[float, ...] | None = None
     hyperprior_weights: Tuple[float, ...] | None = None
     deflate_x_linear: bool = True
+
+    # Hyperprior centers when none are given: the log of the GPMDM
+    # constructor's default inits (a class attribute, not a field).
+    _HYPERPRIOR_DEFAULT_CENTERS = (0.0, 0.0, float(np.log(1e-2)),
+                                   0.0, 0.0, float(np.log(1e-2)), 0.0)
 
     def __post_init__(self):
         if self.dyn_target not in ("full", "delta"):
@@ -109,6 +115,25 @@ class GPMDMConfig:
     def from_dict(cls, d: dict) -> "GPMDMConfig":
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in fields})
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer configuration (reference ``train_adam`` arguments).
+
+    ``optimizer`` is 'adam' (the reference's, and the only one ported);
+    the trainer refuses any other.  ``print_every`` sets the chunk of
+    steps after which the host reads the losses (0: the whole run);
+    ``checkpoint_every`` writes a train-state snapshot to
+    ``checkpoint_path`` each time that many steps have passed."""
+
+    num_steps: int = 500
+    lr: float = 0.01
+    balance: float = 1.0
+    print_every: int = 0
+    checkpoint_every: int = 0
+    checkpoint_path: str | None = None
+    optimizer: str = "adam"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,15 @@
 """Static segment bookkeeping for multi-sequence, multi-class data.
 
-A numpy copy of ``gpmdm_tpu/ops/layout.py``: observation rows are ordered
+A copy of ``gpmdm_tpu/ops/layout.py``: observation rows are ordered
 class-major then sequence-major, so each class occupies one contiguous
 block of rows in the observation/latent matrices (Ny rows) and in the
 dynamics pair matrices Xin/Xout (Nx rows).  Precomputed integer index
 arrays replace the reference's per-sequence loops, and the class-block
 Gram is factored one dense class block at a time.  Block sizes always
 match the true number of dynamics pairs, ``len(seq) - back_step``.
+The layout is built in numpy on the host; ``DataLayout.to(device)`` gives
+the copy whose gather indices live on the model's device, which the loss
+uses on every training step.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -52,6 +56,16 @@ class DataLayout:
     @property
     def class_y_counts(self) -> np.ndarray:
         return np.diff(self.y_class_offsets)
+
+    def to(self, device) -> "DataLayout":
+        """A copy whose dynamics-pair gathers (``xin_idx``, ``xin_prev_idx``,
+        ``xout_idx``) are int64 tensors on ``device``: a gather by a numpy
+        index would copy the index to the device on every call.  The other
+        fields stay host numpy."""
+        return dataclasses.replace(self, **{
+            f: torch.as_tensor(getattr(self, f), dtype=torch.int64, device=device)
+            for f in ("xin_idx", "xin_prev_idx", "xout_idx")
+        })
 
 
 def build_layout(
@@ -132,11 +146,12 @@ def build_layout(
     )
 
 
-def xin_xout(X: np.ndarray, layout: DataLayout, target: str) -> tuple[np.ndarray, np.ndarray]:
+def xin_xout(X, layout: DataLayout, target: str):
     """Gather (Xin, Xout) dynamics regression matrices from the latent matrix X.
 
     Static-index gather version of the reference's per-sequence loop.
-    Covers all four (target, back_step) modes.
+    Covers all four (target, back_step) modes.  X is a numpy array or a
+    tensor; on a tensor the gathers are differentiable.
 
     Returns Xin of shape (Nx, d*back_step) and Xout of shape (Nx, d).
     """
@@ -144,8 +159,38 @@ def xin_xout(X: np.ndarray, layout: DataLayout, target: str) -> tuple[np.ndarray
     if layout.back_step == 1:
         Xin = x_t
     else:
-        Xin = np.concatenate([x_t, X[layout.xin_prev_idx]], axis=1)
+        cat = torch.cat if torch.is_tensor(X) else np.concatenate
+        Xin = cat([x_t, X[layout.xin_prev_idx]], axis=1)
     Xout = X[layout.xout_idx]
     if target == "delta":
         Xout = Xout - x_t
     return Xin, Xout
+
+
+def padded_class_indices(layout: DataLayout) -> dict:
+    """Zero-padded per-class gather arrays into the Ny axis.
+
+    Returns ``{"idx_in", "idx_prev", "idx_out": (C, n_max), "mask": (C,
+    n_max)}`` where row c lists class c's dynamics pairs (x(t), x(t-1),
+    x(t+1) indices), padded with 0 and masked.  The JAX package's further
+    padding of both axes (for a device mesh) is not ported.
+    """
+    C, M = layout.n_classes, layout.n_max
+    idx_in = np.zeros((C, M), dtype=np.int32)
+    idx_prev = np.zeros((C, M), dtype=np.int32)
+    idx_out = np.zeros((C, M), dtype=np.int32)
+    mask = np.zeros((C, M), dtype=np.float64)
+    for c in range(layout.n_classes):
+        n_c = int(layout.class_x_counts[c])
+        pair = layout.class_pair_idx[c, :n_c]
+        idx_in[c, :n_c] = layout.xin_idx[pair]
+        idx_prev[c, :n_c] = layout.xin_prev_idx[pair]
+        idx_out[c, :n_c] = layout.xout_idx[pair]
+        mask[c, :n_c] = 1.0
+    return {"idx_in": idx_in, "idx_prev": idx_prev, "idx_out": idx_out, "mask": mask}
+
+
+def class_block_mask(layout: DataLayout, dtype=np.float32) -> np.ndarray:
+    """Dense Nx x Nx class-block mask M (reference get_M), for inspection
+    and tests only: the compute path never materializes it."""
+    return (layout.pair_class[:, None] == layout.pair_class[None, :]).astype(dtype)

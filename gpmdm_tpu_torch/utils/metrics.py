@@ -86,20 +86,23 @@ def evaluate_pf(
     test_labels: Sequence[int],
     n_classes: int,
     burn_in: int = 0,
+    logger=None,
 ) -> EvalReport:
     """Stream every labeled trial through the filter (resetting between
     trials, as the reference notebook does) and aggregate metrics.
 
     A trial's vote is the majority frame prediction (reference: trial correct
     if >50% of frames correct, test_gpmdm_pf.ipynb cell 4).  The wall time
-    of each trial ends when its predictions reach the host.
+    of each trial ends when its predictions reach the host.  ``logger``
+    (``utils.logging.MetricLogger``) gets one record per trial (frame
+    accuracy, frames/s, predicted and true label) and one for the set.
     """
     frame_pred: List[np.ndarray] = []
     frame_true: List[np.ndarray] = []
     trial_pred: List[int] = []
     total_frames = 0
     wall = 0.0
-    for Z, label in zip(test_seqs, test_labels):
+    for i, (Z, label) in enumerate(zip(test_seqs, test_labels)):
         flt.reset()
         t0 = time.perf_counter()
         outs = flt.run(Z)
@@ -114,9 +117,17 @@ def evaluate_pf(
         # frame metrics
         counts = np.bincount(preds_eval, minlength=n_classes)
         trial_pred.append(int(np.argmax(counts)))
+        if logger is not None:
+            logger.log(step=i, trial_frame_acc=float(np.mean(preds_eval == label)),
+                       trial_fps=len(preds) / trial_wall if trial_wall > 0 else 0.0,
+                       pred_label=trial_pred[-1], true_label=int(label))
 
-    return _report(frame_pred, frame_true, trial_pred, test_labels, n_classes,
-                   total_frames, wall)
+    rep = _report(frame_pred, frame_true, trial_pred, test_labels, n_classes,
+                  total_frames, wall)
+    if logger is not None:
+        logger.log(step=len(trial_pred), frame_acc=rep.frame_metrics["accuracy"],
+                   frame_f1=rep.frame_metrics["f1"], fps=rep.fps)
+    return rep
 
 
 def _report(frame_pred, frame_true, trial_pred, test_labels, n_classes: int,
@@ -161,8 +172,8 @@ def evaluate_pf_banked(
     (``models.core.Posterior``), the only kind the port has.
     ``max_banks`` caps the filters per call: chunks are padded to exactly
     ``max_banks`` rows (invalid, sliced off), and the random streams then
-    depend on the chunking.  ``logger`` (an object with ``log(step=...,
-    **values)``) gets one record per trial and one for the set.  The JAX
+    depend on the chunking.  ``logger`` (``utils.logging.MetricLogger``)
+    gets one record per trial and one for the set.  The JAX
     package's ``mesh`` (banks spread over devices) is not ported yet.
     """
     import torch
