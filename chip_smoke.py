@@ -48,14 +48,14 @@ Phases, each printing one JSON line on stdout:
              (bench_model_n5120.npz), and K1 at n5120's 2,528 dynamics rows
              (the streamed core), each at P = 10,000 on that asset's
              initial cloud and on conditioned inputs, to the same two
-             limits; the assets are deployed exact.
+             limits; the assets' exact posteriors, asked for explicitly.
 4. path    - pf_init + pf_scan, P = 10,000, over the 1000-frame stream of
              bench.py (seed 0); the kernel launch counters must rise by
              exactly 1000 (K1, all classes in one launch), 1000 (K2) and
              1000 (K3); frames/s is the best of 4 runs.
 5. guard   - evaluate_pf on the 12 held-out trials of bench.py (6 per
-             class, seed 0, burn-in 5, P = 10,000); fails below 0.90 frame
-             accuracy.
+             class, seed 0, burn-in 5, P = 10,000), GPMDM_PF with
+             posterior='exact'; fails below 0.90 frame accuracy.
 6. banked_guard - evaluate_pf_banked on the same 12 trials, one bank of
              10,000 particles per trial, padded to 64 frames; fails below
              0.90 frame accuracy; the launch counters must rise by exactly
@@ -74,7 +74,34 @@ Phases, each printing one JSON line on stdout:
              banked guard (exactly T of each for T padded frames), whose
              frame accuracy and F1 are reported, not gated, beside the
              same guard on the plain PyTorch versions (pallas='off'; the
-             fp32 sums in another order).
+             fp32 sums in another order).  Their exact posteriors, asked
+             for explicitly (c8 recommends a sparsified one).
+   compressed - bench.py:264-283 on the headline asset: the compressed
+             posterior (m.compressed_posterior(), tol 1e-6) through the
+             1000-frame path at P = 10,000 (best of 4) and the banked
+             guard (gated at 0.90), beside the exact path's and guard's
+             numbers from this run.  These phases run the compressed
+             posterior's cuBLAS products and K3: the launch counters must
+             read K1 = K2 = 0 and K3 = frames (padded frames on a guard),
+             TF32 must be off and float32 matmuls at "highest".  Peak
+             device memory per phase.
+   compressed_n2048, compressed_n5120 - the large-N assets as loaded:
+             'auto' must resolve to their persisted compressed posteriors
+             (ranks 148/113 and 188/136) without building the exact one;
+             GPMDM_PF's 200-frame path at P = 10,000 and the banked guard
+             of utils.asset_guard (the SHAPES entry of the asset, P =
+             10,000), gated at 0.90, beside the committed receipt (a CPU
+             reading at P = 500).  Then, in the same call, the exact
+             posterior (built on the host, timed): its path frames/s, and
+             at n5120 its banked guard, gated at 0.90 (the full-fp32 K1 /
+             K2 at Ny = 5,120, past the size where the JAX package's
+             reduced-precision quad failed on the TPU).
+   compressed_c8n5120 - the 8-class Ny = 5,120 asset: 'auto' raises (it
+             recommends a sparsified posterior, not ported); with the
+             recommendation set aside 'auto' warns that the rank
+             (1149 / 5120) is in the flat-spectrum band; posterior=
+             'compressed' serves a 200-frame path and the guard (16 banks
+             a call), reported, not gated.
 9. train   - trains the bench_model.npz recipe on the card
              (bench_assets/README.md: D = 35, d = 2, 2 classes, 4 x 60
              frames each, sigma_n inits 0.1, f32, 300 Adam steps at lr
@@ -112,6 +139,7 @@ import signal
 import subprocess
 import sys
 import time
+import warnings
 
 DEADLINE_S = 600
 N_PARTICLES = 10_000
@@ -124,9 +152,14 @@ GUARD_MIN_FRAME_ACC = 0.90
 TILES = (64, 128)
 # frames of the d4 and c8 assets' paths
 EXTRA_FRAMES = 200
-# the large-N assets, deployed exact (their compressed and sparse caches
-# are ignored): K2 at their Ny, K1 at n5120's dynamics rows
+# the large-N assets' exact posteriors: K2 at their Ny, K1 at n5120's
+# dynamics rows
 LARGE_N = (("n2048", "bench_model_n2048.npz", False), ("n5120", "bench_model_n5120.npz", True))
+# the large-N assets served as loaded: asset-guard shape, file, the ranks
+# of the compressed posterior each persists, and whether the exact
+# posterior's guard runs too
+COMPRESSED_LARGE = (("n2048", "bench_model_n2048.npz", (148, 113), False),
+                    ("n5120", "bench_model_n5120.npz", (188, 136), True))
 # a kernel's max error on the well-conditioned inputs, relative to the
 # output's median magnitude in float64
 CONDITIONED_RTOL = 1e-4
@@ -321,10 +354,12 @@ def main(argv) -> int:
                                                dirichlet_counts, gemm_yardstick, time_ms)
     from gpmdm_tpu_torch.data import synthetic
     from gpmdm_tpu_torch.filter import particle_filter as pf
+    from gpmdm_tpu_torch.models.compressed import CompressedPosterior
     from gpmdm_tpu_torch.ops import _build
     from gpmdm_tpu_torch.ops import gp_posterior as gpk
     from gpmdm_tpu_torch.ops import resample as rs
     from gpmdm_tpu_torch.train import trainer
+    from gpmdm_tpu_torch.utils import asset_guard as ag
     from gpmdm_tpu_torch.utils.logging import MetricLogger
     from gpmdm_tpu_torch.utils.metrics import evaluate_pf, evaluate_pf_banked
 
@@ -494,41 +529,48 @@ def main(argv) -> int:
         gpk.reset_launches()
         rs.reset_launches()
 
-    def check_launches(label, frames):
+    def check_launches(label, frames, exact=True):
         """The counters against ``frames`` frames of one launch each of K1
         (every class at once), K2 and K3, whatever the number of banks and
-        classes."""
+        classes; on the compressed posterior (``exact=False``) of K3 alone."""
         got = {**gpk.LAUNCHES, **rs.LAUNCHES}
-        want = {"fused_x_posterior": frames, "fused_rbf_posterior": 0,
-                "fused_obs_loglik": frames, "resample_rank": frames}
+        k = frames if exact else 0
+        want = {"fused_x_posterior": k, "fused_rbf_posterior": 0,
+                "fused_obs_loglik": k, "resample_rank": frames}
         if got != want:
             raise AssertionError(f"{label}: launch counts {got}, expected {want}")
         return got
 
     _phase[0] = "path"
 
-    def run_path(config):
+    def run_path(config, post_=post):
+        """pf_init + pf_scan over the stream on post_, timed: (seconds,
+        outputs)."""
         g = torch.Generator(device=dev).manual_seed(0)
-        s0 = pf.pf_init(post, model.layout.y_class_offsets, g, config)
+        s0 = pf.pf_init(post_, model.layout.y_class_offsets, g, config)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        _, o = pf.pf_scan(s0, Z, post, params, log_T, cfg, config, generator=g)
+        _, o = pf.pf_scan(s0, Z, post_, params, log_T, cfg, config, generator=g)
         torch.cuda.synchronize()
         return time.perf_counter() - t, o
+
+    def check_outputs(label, o, frames, classes):
+        probs = o.class_probs
+        if probs.shape != (frames, classes) or not torch.isfinite(probs).all():
+            raise AssertionError(f"{label}: class_probs not finite or of the wrong shape")
+        if not torch.allclose(probs.sum(1), torch.ones_like(probs[:, 0]), atol=1e-4):
+            raise AssertionError(f"{label}: class_probs rows do not sum to 1")
+        if not torch.isfinite(o.state_mean).all():
+            raise AssertionError(f"{label}: state_mean not finite")
 
     reset_launches()
     wall, outs = run_path(pfc)
     launches = check_launches("path", N_FRAMES)
-    probs = outs.class_probs
-    if probs.shape != (N_FRAMES, C) or not torch.isfinite(probs).all():
-        raise AssertionError("class_probs not finite or of the wrong shape")
-    if not torch.allclose(probs.sum(1), torch.ones_like(probs[:, 0]), atol=1e-4):
-        raise AssertionError("class_probs rows do not sum to 1")
-    if not torch.isfinite(outs.state_mean).all():
-        raise AssertionError("state_mean not finite")
+    check_outputs("path", outs, N_FRAMES, C)
     walls = [wall] + [run_path(pfc)[0] for _ in range(TIMED_RUNS - 1)]
     plain_wall = run_path(PFConfig(num_particles=N_PARTICLES, pallas="off"))[0]
     best = min(walls)
+    path_fps = N_FRAMES / best
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit({"phase": "path", "particles": N_PARTICLES, "frames": N_FRAMES,
@@ -559,7 +601,7 @@ def main(argv) -> int:
     _phase[0] = "guard"
     _, _, q_seqs, q_labels = synthetic.make_dataset(
         n_classes=2, n_train_seqs=4, n_test_seqs=6, seq_len=60, D=cfg.D, seed=0)
-    flt = GPMDM_PF(model, TRANSITIONS, N_PARTICLES, config=pfc, seed=0)
+    flt = GPMDM_PF(model, TRANSITIONS, N_PARTICLES, config=pfc, seed=0, posterior="exact")
     rep = evaluate_pf(flt, q_seqs, q_labels, C, burn_in=5)
     acc = rep.frame_metrics["accuracy"]
     emit({"phase": "guard", "frame_acc": acc, "frame_f1": rep.frame_metrics["f1"],
@@ -583,7 +625,8 @@ def main(argv) -> int:
           "launches": banked_launches, "min_frame_acc": GUARD_MIN_FRAME_ACC})
     if not acc >= GUARD_MIN_FRAME_ACC:
         raise AssertionError(f"banked guard frame accuracy {acc} < {GUARD_MIN_FRAME_ACC}")
-    asset_guard = {"frame_acc": acc, "frame_f1": rep.frame_metrics["f1"]}
+    asset_guard = {"frame_acc": acc, "frame_f1": rep.frame_metrics["f1"],
+                   "agg_fps": rep.fps}
 
     _phase[0] = "fleet"
     Zf = Z[None, :FLEET_FRAMES].expand(FLEET_BANKS, FLEET_FRAMES, D)
@@ -635,11 +678,7 @@ def main(argv) -> int:
         reset_launches()
         wall, o = run()
         path_launches = check_launches(f"{label} path", EXTRA_FRAMES)
-        probs = o.class_probs
-        if probs.shape != (EXTRA_FRAMES, Cx) or not torch.isfinite(probs).all():
-            raise AssertionError(f"{label}: class_probs not finite or of the wrong shape")
-        if not torch.allclose(probs.sum(1), torch.ones_like(probs[:, 0]), atol=1e-4):
-            raise AssertionError(f"{label}: class_probs rows do not sum to 1")
+        check_outputs(f"{label} path", o, EXTRA_FRAMES, Cx)
         walls = [wall, run()[0]]
         T_pad = pf.bucket_length(max(len(q) for q in trials))
         reset_launches()
@@ -676,6 +715,218 @@ def main(argv) -> int:
     Z8 = torch.as_tensor(np.concatenate(te8 * 10, axis=0)[:EXTRA_FRAMES], device=dev,
                          dtype=torch.float32)
     c8 = extra_asset("c8", "bench_model_c8.npz", Z8, te8, tel8, T8)
+
+    # The compressed posterior: cuBLAS products and K3, in full fp32.
+    def check_precision(label):
+        if torch.backends.cuda.matmul.allow_tf32 is not False or \
+                torch.get_float32_matmul_precision() != "highest":
+            raise AssertionError(f"{label}: fp32 matmuls must not use TF32")
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    def timed_filter(flt, Zx):
+        """GPMDM_PF.run over Zx from its seed, timed: (seconds, outputs)."""
+        flt.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        o = flt.run(Zx)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, o
+
+    _phase[0] = "compressed"
+    check_precision("compressed")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cp = model.compressed_posterior()
+    build_cp_s = time.perf_counter() - t0
+    reset_launches()
+    wall, outs = run_path(pfc, cp)
+    comp_path_launches = check_launches("compressed path", N_FRAMES, exact=False)
+    check_outputs("compressed path", outs, N_FRAMES, C)
+    walls = [wall] + [run_path(pfc, cp)[0] for _ in range(TIMED_RUNS - 1)]
+    path_peak = peak_gib()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rep = evaluate_pf_banked(model, TRANSITIONS, q_seqs, q_labels, num_particles=N_PARTICLES,
+                             burn_in=5, seed=0, config=pfc, posterior=cp)
+    comp_guard_launches = check_launches("compressed banked guard", T_pad, exact=False)
+    check_precision("compressed")
+    acc = rep.frame_metrics["accuracy"]
+    emit({"phase": "compressed", "rank_y": cp.rank_y, "rank_x": cp.rank_x,
+          "compress_host_s": build_cp_s, "particles": N_PARTICLES, "frames": N_FRAMES,
+          "path_launches": comp_path_launches, "fps": N_FRAMES / min(walls), "walls_s": walls,
+          "exact_path_fps": path_fps, "path_peak_gib": path_peak,
+          "banked_guard": {"frame_acc": acc, "frame_f1": rep.frame_metrics["f1"],
+                           "trial_acc": rep.trial_metrics["accuracy"],
+                           "frames": rep.total_frames, "banks": len(q_seqs),
+                           "padded_frames": T_pad, "wall_s": rep.total_wall_s,
+                           "agg_fps": rep.fps, "launches": comp_guard_launches,
+                           "peak_gib": peak_gib()},
+          "exact_banked_guard": asset_guard, "min_frame_acc": GUARD_MIN_FRAME_ACC,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "float32_matmul_precision": torch.get_float32_matmul_precision(),
+          "device": kind, "nvidia_smi": smi})
+    if not acc >= GUARD_MIN_FRAME_ACC:
+        raise AssertionError(f"compressed banked guard frame accuracy {acc} < "
+                             f"{GUARD_MIN_FRAME_ACC}")
+    if "--profile" in argv:
+        cfg_p = PFConfig(num_particles=N_PARTICLES, pallas="on")
+        g = torch.Generator(device=dev).manual_seed(0)
+        st = pf.pf_init(cp, offsets, g, cfg_p)
+        st, _ = pf.pf_scan(st, Z[:5], cp, params, log_T, cfg, cfg_p, generator=g)
+        emit({"phase": "profile", "path": "compressed_path", "banks": 1,
+              "particles": N_PARTICLES,
+              **profile(lambda: pf.pf_scan(st, Z[5:55], cp, params, log_T, cfg, cfg_p,
+                                           generator=g), 50)})
+    del cp
+
+    compressed_launches = {}
+    for name, fname, ranks, exact_guard in COMPRESSED_LARGE:
+        label = f"compressed_{name}"
+        _phase[0] = label
+        check_precision(label)
+        torch.cuda.reset_peak_memory_stats()
+        m = GPMDM.load(os.path.join(ROOT, "bench_assets", fname), device=dev)
+        cpx = pf.resolve_posterior(m, "auto")
+        if not isinstance(cpx, CompressedPosterior) or (cpx.rank_y, cpx.rank_x) != ranks:
+            raise AssertionError(f"{label}: 'auto' resolved to {type(cpx).__name__} "
+                                 f"{getattr(cpx, 'rank_y', None)}/{getattr(cpx, 'rank_x', None)}, "
+                                 f"expected the persisted CompressedPosterior {ranks}")
+        Zx = Z[:EXTRA_FRAMES].contiguous()
+        flt = GPMDM_PF(m, TRANSITIONS, N_PARTICLES, config=pfc, seed=0)
+        reset_launches()
+        wall, o = timed_filter(flt, Zx)
+        lp = check_launches(f"{label} path", EXTRA_FRAMES, exact=False)
+        check_outputs(f"{label} path", o, EXTRA_FRAMES, 2)
+        walls = [wall, timed_filter(flt, Zx)[0]]
+        path_peak = peak_gib()
+        torch.cuda.reset_peak_memory_stats()
+        trials = ag.guard_trials(name)[0]
+        T_pad_x = pf.bucket_length(max(len(q) for q in trials))
+        reset_launches()
+        rep = ag.guard_report(m, name, particles=N_PARTICLES, posterior=cpx)
+        lg = check_launches(f"{label} banked guard", T_pad_x, exact=False)
+        check_precision(label)
+        if m._posterior is not None:
+            raise AssertionError(f"{label}: the exact posterior was built")
+        acc = rep.frame_metrics["accuracy"]
+        entry = {"phase": label, "Ny": m.layout.Ny, "n_max": m.layout.n_max,
+                 "rank_y": cpx.rank_y, "rank_x": cpx.rank_x, "particles": N_PARTICLES,
+                 "frames": EXTRA_FRAMES, "path_launches": lp,
+                 "fps": EXTRA_FRAMES / min(walls), "walls_s": walls, "path_peak_gib": path_peak,
+                 "banked_guard": {"frame_acc": acc, "frame_f1": rep.frame_metrics["f1"],
+                                  "trial_acc": rep.trial_metrics["accuracy"],
+                                  "frames": rep.total_frames, "banks": len(trials),
+                                  "padded_frames": T_pad_x, "wall_s": rep.total_wall_s,
+                                  "agg_fps": rep.fps, "launches": lg, "peak_gib": peak_gib()},
+                 "exact_posterior_built": False, "receipt": m._guard_receipt,
+                 "min_frame_acc": GUARD_MIN_FRAME_ACC}
+        compressed_launches[f"{label}_path"] = lp
+        compressed_launches[f"{label}_banked_guard"] = lg
+        if "--profile" in argv:
+            for nb, frames in ((1, 50), (len(trials), 10)):
+                g = torch.Generator(device=dev).manual_seed(0)
+                st = pf.pf_init_bank(cpx, m.layout.y_class_offsets, g, pfc, nb)
+                Zb = Zx[None, :frames].expand(nb, frames, m.D)
+                emit({"phase": "profile", "path": f"{label}_{nb}x{N_PARTICLES}", "banks": nb,
+                      "particles": N_PARTICLES,
+                      **profile(lambda: pf.pf_scan_bank(st, Zb, cpx, m.params, log_T, m.config,
+                                                        pfc, generator=g), frames)})
+        if not acc >= GUARD_MIN_FRAME_ACC:
+            emit(entry)
+            raise AssertionError(f"{label}: banked guard frame accuracy {acc} < "
+                                 f"{GUARD_MIN_FRAME_ACC}")
+        # the exact posterior on the same asset, for the ratio
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fe = GPMDM_PF(m, TRANSITIONS, N_PARTICLES, config=pfc, seed=0, posterior="exact")
+        entry["exact_build_s"] = time.perf_counter() - t0
+        entry["exact_warnings"] = [str(w.message)[:120] for w in caught]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        wall, o = timed_filter(fe, Zx)
+        le = check_launches(f"exact_{name} path", EXTRA_FRAMES)
+        check_outputs(f"exact_{name} path", o, EXTRA_FRAMES, 2)
+        ewalls = [wall, timed_filter(fe, Zx)[0]]
+        entry.update(exact_fps=EXTRA_FRAMES / min(ewalls), exact_walls_s=ewalls,
+                     exact_path_peak_gib=peak_gib(),
+                     fps_ratio=(EXTRA_FRAMES / min(walls)) / (EXTRA_FRAMES / min(ewalls)))
+        compressed_launches[f"exact_{name}_path"] = le
+        if exact_guard:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            rep = ag.guard_report(m, name, particles=N_PARTICLES, posterior=m.posterior)
+            compressed_launches[f"exact_{name}_banked_guard"] = check_launches(
+                f"exact_{name} banked guard", T_pad_x)
+            eacc = rep.frame_metrics["accuracy"]
+            entry["exact_banked_guard"] = {
+                "frame_acc": eacc, "frame_f1": rep.frame_metrics["f1"],
+                "trial_acc": rep.trial_metrics["accuracy"], "wall_s": rep.total_wall_s,
+                "agg_fps": rep.fps, "peak_gib": peak_gib()}
+            if not eacc >= GUARD_MIN_FRAME_ACC:
+                emit(entry)
+                raise AssertionError(f"exact_{name}: banked guard frame accuracy {eacc} < "
+                                     f"{GUARD_MIN_FRAME_ACC}")
+        emit({**entry, "device": kind, "nvidia_smi": smi})
+        del m, cpx, flt, fe
+        torch.cuda.empty_cache()
+
+    _phase[0] = "compressed_c8n5120"
+    check_precision("compressed_c8n5120")
+    m = GPMDM.load(os.path.join(ROOT, "bench_assets", "bench_model_c8n5120.npz"), device=dev)
+    try:
+        pf.resolve_posterior(m, "auto")
+        raise AssertionError("compressed_c8n5120: 'auto' served a posterior in place of "
+                             "the sparsified one it recommends")
+    except NotImplementedError as e:
+        auto_error = str(e)[:120]
+    rec, m._deploy_recommendation = m._deploy_recommendation, None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cpx = pf.resolve_posterior(m, "auto")
+    m._deploy_recommendation = rec
+    flat = [str(w.message) for w in caught if "flat-spectrum band" in str(w.message)]
+    if not flat or cpx is not pf.resolve_posterior(m, "compressed"):
+        raise AssertionError("compressed_c8n5120: 'auto' without its recommendation did "
+                             "not warn of the flat spectrum and serve the cached posterior")
+    torch.cuda.reset_peak_memory_stats()
+    flt = GPMDM_PF(m, T8, N_PARTICLES, config=pfc, seed=0, posterior="compressed")
+    reset_launches()
+    wall, o = timed_filter(flt, Z8)
+    lp = check_launches("compressed_c8n5120 path", EXTRA_FRAMES, exact=False)
+    check_outputs("compressed_c8n5120 path", o, EXTRA_FRAMES, 8)
+    walls = [wall, timed_filter(flt, Z8)[0]]
+    path_peak = peak_gib()
+    trials = ag.guard_trials("c8n5120")[0]
+    T_pad_x = pf.bucket_length(max(len(q) for q in trials))
+    n_calls = -(-len(trials) // ag.SHAPES["c8n5120"]["guard_banks"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rep = ag.guard_report(m, "c8n5120", particles=N_PARTICLES, posterior=cpx)
+    lg = check_launches("compressed_c8n5120 banked guard", n_calls * T_pad_x, exact=False)
+    check_precision("compressed_c8n5120")
+    if m._posterior is not None:
+        raise AssertionError("compressed_c8n5120: the exact posterior was built")
+    compressed_launches["compressed_c8n5120_path"] = lp
+    compressed_launches["compressed_c8n5120_banked_guard"] = lg
+    emit({"phase": "compressed_c8n5120", "Ny": m.layout.Ny, "classes": m.n_classes,
+          "rank_y": cpx.rank_y, "rank_x": cpx.rank_x, "auto_error": auto_error,
+          "flat_band_warning": flat[0][:120], "particles": N_PARTICLES, "frames": EXTRA_FRAMES,
+          "path_launches": lp, "fps": EXTRA_FRAMES / min(walls), "walls_s": walls,
+          "path_peak_gib": path_peak,
+          "banked_guard": {"frame_acc": rep.frame_metrics["accuracy"],
+                           "frame_f1": rep.frame_metrics["f1"],
+                           "trial_acc": rep.trial_metrics["accuracy"],
+                           "frames": rep.total_frames, "banks": len(trials),
+                           "banks_per_call": ag.SHAPES["c8n5120"]["guard_banks"],
+                           "padded_frames": T_pad_x, "wall_s": rep.total_wall_s,
+                           "agg_fps": rep.fps, "launches": lg, "peak_gib": peak_gib(),
+                           "gated": False},
+          "receipt": m._guard_receipt, "device": kind, "nvidia_smi": smi})
+    del m, cpx, flt
+    torch.cuda.empty_cache()
 
     def recipe_model(recipe, dtype="float32", device=dev):
         """A PCA-initialized model of the recipe (seed 0, the D of the bench
@@ -766,7 +1017,10 @@ def main(argv) -> int:
         k["launches_by_phase"] = {"path": launches[n], "banked_guard": banked_launches[n],
                                   "fleet": fleet_launches[n], "d4_path": d4[0][n],
                                   "d4_banked_guard": d4[1][n], "c8_path": c8[0][n],
-                                  "c8_banked_guard": c8[1][n], "train_guard": train_launches[n]}
+                                  "c8_banked_guard": c8[1][n], "train_guard": train_launches[n],
+                                  "compressed_path": comp_path_launches[n],
+                                  "compressed_banked_guard": comp_guard_launches[n],
+                                  **{k: v[n] for k, v in compressed_launches.items()}}
 
     _phase[0] = "report"
     heavy = ("path_inputs", "conditioned_inputs")

@@ -166,9 +166,12 @@ class PFConfig:
     (one observation per bank).  It computes what the JAX package's vmap
     path computes.
 
-    quad_precision, recon_precision and fuse_mean_quad tune JAX-package
-    paths that this port does not have yet; they are validated and carried
-    so that configurations round-trip.
+    quad_precision, recon_precision and fuse_mean_quad pick the TPU's
+    matmul passes and product split for the JAX package's variance
+    products; they are validated and carried so that configurations
+    round-trip.  The port ignores them: every product runs in IEEE fp32,
+    and both posteriors take the mean and the quad from one pass (the
+    exact one's kernels, the compressed one's single product).
     """
 
     num_particles: int = 100

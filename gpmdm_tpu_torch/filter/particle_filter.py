@@ -1,22 +1,30 @@
 """Switching-state particle filter over a trained exact GPMDM.
 
-Counterpart of ``gpmdm_tpu/filter/particle_filter.py`` on its fused-kernel
-path (``PFConfig(pallas='on')``), for one filter (``pf_init``, ``pf_step``,
-``pf_scan``, ``GPMDM_PF``) or a bank of B independent filters in one call
-(``pf_init_bank``, ``pf_step_bank``, ``pf_scan_bank``,
-``pf_scan_bank_masked``; ``pf_scan_masked`` for one padded sequence).  One
-filter is a bank of one.  Each frame runs:
+Counterpart of ``gpmdm_tpu/filter/particle_filter.py``, for one filter
+(``pf_init``, ``pf_step``, ``pf_scan``, ``GPMDM_PF``) or a bank of B
+independent filters in one call (``pf_init_bank``, ``pf_step_bank``,
+``pf_scan_bank``, ``pf_scan_bank_masked``; ``pf_scan_masked`` for one
+padded sequence).  One filter is a bank of one.  The GP stages dispatch
+on the posterior's type, as the JAX package's do: the exact
+``core.Posterior`` runs the fused kernels (the JAX package's
+``PFConfig(pallas='on')`` path), the ``compressed.CompressedPosterior``
+its cuBLAS products (the JAX package's XLA path).  Each frame runs:
 
 1. Markov class transition, by inverse CDF: one uniform per particle;
-2. the per-class dynamics posterior (``fused_x_posterior_classes``: one
-   launch for every class over every bank's particles) and a draw from
-   the selected class's predictive Gaussian;
-3. observation weighting (``fused_obs_loglik``, one launch, one
+2. the per-class dynamics posterior (exact: ``fused_x_posterior_classes``,
+   one launch for every class over every bank's particles) and a draw
+   from the selected class's predictive Gaussian;
+3. observation weighting (exact: ``fused_obs_loglik``, one launch, one
    observation per bank);
 4. weight normalisation and the readouts per bank, taken BEFORE
    resampling;
 5. systematic resampling (its rank from ``ops.resample.resample_rank``,
-   one launch over all banks) or multinomial resampling.
+   one launch over all banks, whatever the posterior) or multinomial
+   resampling.
+
+``GPMDM_PF`` picks the posterior by the JAX package's deployment policy
+(``resolve_posterior``): by default the exact posterior, or the
+compressed one past ``AUTO_COMPRESS_N`` training rows.
 
 Randomness comes from an explicit ``torch.Generator`` on the state's
 device, or is injected per frame as ``PFNoise`` (the parity tests feed the
@@ -28,13 +36,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import GPMDMConfig, PFConfig
-from ..models import core
+from ..models import compressed, core
 from ..ops import gp_posterior as gpk
 from ..ops import kernels as K
 from ..ops import resample as rs
@@ -107,12 +116,13 @@ def _init_classes(num_particles: int, n_classes: int) -> np.ndarray:
     return np.repeat(np.arange(n_classes, dtype=np.int64), counts)
 
 
-def pf_init_bank(post: core.Posterior, y_class_offsets: np.ndarray,
+def pf_init_bank(post, y_class_offsets: np.ndarray,
                  generator: torch.Generator, pf_cfg: PFConfig,
                  n_banks: int) -> PFState:
-    """A bank of ``n_banks`` independent filters of ``num_particles`` each,
-    every particle sampled (with replacement) from its class's training
-    latents; each bank from its own draws."""
+    """A bank of ``n_banks`` independent filters of ``num_particles`` each
+    over ``post`` (exact or compressed), every particle sampled (with
+    replacement) from its class's training latents; each bank from its own
+    draws."""
     Pb = pf_cfg.num_particles
     C = len(y_class_offsets) - 1
     dev = post.X.device
@@ -132,7 +142,7 @@ def pf_init_bank(post: core.Posterior, y_class_offsets: np.ndarray,
     )
 
 
-def pf_init(post: core.Posterior, y_class_offsets: np.ndarray,
+def pf_init(post, y_class_offsets: np.ndarray,
             generator: torch.Generator, pf_cfg: PFConfig) -> PFState:
     """One filter: particles sampled (with replacement) from each class's
     training latents."""
@@ -208,29 +218,80 @@ def _kernel_fns(pf_cfg: PFConfig):
     return gpk.fused_x_posterior_classes, gpk.fused_obs_loglik, rs.resample_rank
 
 
-def pf_step_bank(states: PFState, z: torch.Tensor, post: core.Posterior,
-                 params: core.GPMDMParams, log_T: torch.Tensor, cfg: GPMDMConfig,
-                 pf_cfg: PFConfig, noise: PFNoise | None = None,
+def _dynamics(post, params, xin, cfg: GPMDMConfig, pf_cfg: PFConfig):
+    """Every class's dynamics posterior at every particle: means and
+    per-dimension variances (C, P, d).  Exact: K1, one launch for all
+    classes (n_valid = n_max disables its row mask: the precompute's zero
+    padding of Axc / Kxc_inv annihilates the padded star-kernel rows),
+    the common variance not clamped.  Compressed: its products, the
+    common variance clamped at 1e-9."""
+    if isinstance(post, compressed.CompressedPosterior):
+        return compressed.predict_x_all_classes(post, params, xin, cfg)
+    x_posterior = _kernel_fns(pf_cfg)[0]
+    diag_star = K.x_diag_kernel(
+        xin, params.x_log_lin_coeff, params.x_log_sigma_n, cfg.sigma_n_num_X, False
+    )
+    means, quads = x_posterior(post.Xin_c, xin, post.Axc, post.Kxc_inv,
+                               torch.exp(-params.x_log_lengthscales),
+                               torch.exp(params.x_log_lin_coeff), post.Xin_c.shape[1])
+    var_common = diag_star[None] - quads  # (C, P)
+    return means, var_common[:, :, None] * torch.exp(params.x_log_lambdas)[None, :] ** -2
+
+
+def _observation_log_lik(post, params, x_new, z, cfg: GPMDMConfig, pf_cfg: PFConfig):
+    """(P,) log-likelihood of each particle against its own bank's
+    observation, ``z`` (B, D).  Exact: K2 returns the variance quad and
+    the weighted residual, the log-pdf is elementwise from there.
+    Compressed: its predictions, then the diagonal-Gaussian log-pdf."""
+    coeff = 1.0 if pf_cfg.compat_double_logdet else 0.5
+    if isinstance(post, compressed.CompressedPosterior):
+        mean_y, var_y = compressed.predict_y(post, params, x_new, cfg,
+                                             with_noise=pf_cfg.obs_noise_in_weights)
+        var_y = torch.clamp(var_y, min=1e-12)
+        B, D = z.shape
+        resid = z[:, None, :] - mean_y.reshape(B, -1, D)
+        quad = torch.sum(resid**2 / var_y.reshape(B, -1, D), dim=2).reshape(-1)
+        logdet = torch.sum(torch.log(var_y), dim=1)
+        return -0.5 * quad - coeff * logdet - 0.5 * D * _LOG_2PI
+    quad, qres = _kernel_fns(pf_cfg)[1](
+        post.X, x_new.contiguous(), post.Ay, post.Ky_inv,
+        torch.exp(-params.y_log_lengthscales), z.contiguous(),
+        torch.exp(2.0 * params.y_log_lambdas),
+    )
+    diag = K.y_diag_kernel(
+        x_new, params.y_log_sigma_n, cfg.sigma_n_num_Y, pf_cfg.obs_noise_in_weights
+    )
+    var_c = torch.clamp(diag - quad, min=1e-12)
+    logdet = cfg.D * torch.log(var_c) - 2.0 * torch.sum(params.y_log_lambdas)
+    return -0.5 * qres / var_c - coeff * logdet - 0.5 * cfg.D * _LOG_2PI
+
+
+def pf_step_bank(states: PFState, z: torch.Tensor, post, params: core.GPMDMParams,
+                 log_T: torch.Tensor, cfg: GPMDMConfig, pf_cfg: PFConfig,
+                 noise: PFNoise | None = None,
                  generator: torch.Generator | None = None) -> tuple[PFState, PFOutputs]:
     """One update of B independent filters: (states, observations (B, D))
-    -> (new states, readouts with a leading bank axis).
+    -> (new states, readouts with a leading bank axis).  ``post`` is an
+    exact ``core.Posterior`` or a ``compressed.CompressedPosterior``.
 
     Counterpart of the JAX package's flat-bank step: the GP stages run on
-    the flat (B * Pb, d) particle set as one filter would (one launch of
-    K1 for all C classes, one of K2 with one observation per bank), and
-    only the O(P) glue is
-    bank-blocked: weight normalisation, readouts, the ESS select, the rank
-    K3 over (B, Pb) and one flat offset gather.  ``noise`` supplies this
-    frame's randomness; without it the step draws from ``generator``.
-    Multinomial resampling always needs ``generator``.
+    the flat (B * Pb, d) particle set as one filter would (exact: one
+    launch of K1 for all C classes, one of K2 with one observation per
+    bank), and only the O(P) glue is bank-blocked: weight normalisation,
+    readouts, the ESS select, the rank K3 over (B, Pb) and one flat
+    offset gather.  ``noise`` supplies this frame's randomness; without
+    it the step draws from ``generator``.  Multinomial resampling always
+    needs ``generator``.
     """
+    if not isinstance(post, (core.Posterior, compressed.CompressedPosterior)):
+        raise TypeError(f"unknown posterior backend: {type(post)!r}")
     B, Pb, d = states.x.shape
     P = B * Pb
     if noise is None:
         if generator is None:
             raise ValueError("pf_step needs injected noise or a generator")
         noise = draw_noise(B, Pb, d, generator, states.x.dtype, states.x.device)
-    x_posterior, obs_loglik, rank = _kernel_fns(pf_cfg)
+    rank = _kernel_fns(pf_cfg)[2]
 
     # 1. Markov class transition by inverse CDF against the particle's row.
     C = log_T.shape[0]
@@ -241,42 +302,19 @@ def pf_step_bank(states: PFState, z: torch.Tensor, post: core.Posterior,
     c = torch.clamp(c, max=C - 1)
 
     # 2. Dynamics: every class's GP posterior for every particle, select by
-    #    class, sample.  n_valid = n_max disables the kernel's row mask: the
-    #    precompute's zero padding of Axc / Kxc_inv annihilates the padded
-    #    star-kernel rows instead.
+    #    class, sample.
     x_flat = states.x.reshape(P, d)
     xin = x_flat if cfg.dyn_back_step == 1 else torch.cat(
         [x_flat, states.x_prev.reshape(P, d)], dim=1)
-    xin = xin.contiguous()
-    inv_ls = torch.exp(-params.x_log_lengthscales)
-    lin_w = torch.exp(params.x_log_lin_coeff)
-    diag_star = K.x_diag_kernel(
-        xin, params.x_log_lin_coeff, params.x_log_sigma_n, cfg.sigma_n_num_X, False
-    )
-    lam_x = torch.exp(params.x_log_lambdas)[None, :] ** -2
-    means, quads = x_posterior(post.Xin_c, xin, post.Axc, post.Kxc_inv, inv_ls, lin_w,
-                               post.Xin_c.shape[1])
-    var_common = diag_star[None] - quads  # (C, P), no clamp on this path
+    means, variances = _dynamics(post, params, xin.contiguous(), cfg, pf_cfg)
     mean = _select_by_class(means, c)
-    var = torch.clamp(_select_by_class(var_common[:, :, None] * lam_x, c), min=1e-12)
+    var = torch.clamp(_select_by_class(variances, c), min=1e-12)
     prop = mean + torch.sqrt(var) * noise.eps_dyn.reshape(P, d).to(mean.dtype)
     x_new = x_flat + prop if cfg.dyn_target == "delta" else prop
 
-    # 3. Observation weighting: the fused kernel returns the variance quad
-    #    and the weighted residual against each particle's own bank's
-    #    observation; the log-pdf is elementwise from there.
-    quad, qres = obs_loglik(
-        post.X, x_new.contiguous(), post.Ay, post.Ky_inv,
-        torch.exp(-params.y_log_lengthscales), z.contiguous(),
-        torch.exp(2.0 * params.y_log_lambdas),
-    )
-    diag = K.y_diag_kernel(
-        x_new, params.y_log_sigma_n, cfg.sigma_n_num_Y, pf_cfg.obs_noise_in_weights
-    )
-    var_c = torch.clamp(diag - quad, min=1e-12)
-    coeff = 1.0 if pf_cfg.compat_double_logdet else 0.5
-    logdet = cfg.D * torch.log(var_c) - 2.0 * torch.sum(params.y_log_lambdas)
-    log_lik = -0.5 * qres / var_c - coeff * logdet - 0.5 * cfg.D * _LOG_2PI
+    # 3. Observation weighting against each particle's own bank's
+    #    observation.
+    log_lik = _observation_log_lik(post, params, x_new, z, cfg, pf_cfg)
     # dead-particle guard: a diverged particle gets likelihood zero
     neg_inf = torch.tensor(-math.inf, dtype=log_lik.dtype, device=log_lik.device)
     log_lik = torch.where(torch.isfinite(log_lik), log_lik, neg_inf).reshape(B, Pb)
@@ -330,7 +368,7 @@ def pf_step_bank(states: PFState, z: torch.Tensor, post: core.Posterior,
     return new_states, outputs
 
 
-def pf_step(state: PFState, z: torch.Tensor, post: core.Posterior,
+def pf_step(state: PFState, z: torch.Tensor, post,
             params: core.GPMDMParams, log_T: torch.Tensor, cfg: GPMDMConfig,
             pf_cfg: PFConfig, noise: PFNoise | None = None,
             generator: torch.Generator | None = None) -> tuple[PFState, PFOutputs]:
@@ -347,7 +385,7 @@ def pf_step(state: PFState, z: torch.Tensor, post: core.Posterior,
     return _map(new, lambda a: a[0]), _map(out, lambda a: a[0])
 
 
-def pf_scan(state: PFState, Z: torch.Tensor, post: core.Posterior,
+def pf_scan(state: PFState, Z: torch.Tensor, post,
             params: core.GPMDMParams, log_T: torch.Tensor, cfg: GPMDMConfig,
             pf_cfg: PFConfig, generator: torch.Generator | None = None,
             noise: PFNoise | None = None) -> tuple[PFState, PFOutputs]:
@@ -359,7 +397,7 @@ def pf_scan(state: PFState, Z: torch.Tensor, post: core.Posterior,
                           generator=generator, noise=noise)
 
 
-def pf_scan_masked(state: PFState, Z: torch.Tensor, valid, post: core.Posterior,
+def pf_scan_masked(state: PFState, Z: torch.Tensor, valid, post,
                    params: core.GPMDMParams, log_T: torch.Tensor, cfg: GPMDMConfig,
                    pf_cfg: PFConfig, generator: torch.Generator | None = None,
                    noise: PFNoise | None = None) -> tuple[PFState, PFOutputs]:
@@ -380,7 +418,7 @@ def pf_scan_masked(state: PFState, Z: torch.Tensor, valid, post: core.Posterior,
 
 
 def pf_scan_bank_masked(states: PFState, Z: torch.Tensor, valid: torch.Tensor | None,
-                        post: core.Posterior, params: core.GPMDMParams,
+                        post, params: core.GPMDMParams,
                         log_T: torch.Tensor, cfg: GPMDMConfig, pf_cfg: PFConfig,
                         generator: torch.Generator | None = None,
                         noise: PFNoise | None = None) -> tuple[PFState, PFOutputs]:
@@ -407,7 +445,7 @@ def pf_scan_bank_masked(states: PFState, Z: torch.Tensor, valid: torch.Tensor | 
     return states, _stack(outs, dim=1)
 
 
-def pf_scan_bank(states: PFState, Z: torch.Tensor, post: core.Posterior,
+def pf_scan_bank(states: PFState, Z: torch.Tensor, post,
                  params: core.GPMDMParams, log_T: torch.Tensor, cfg: GPMDMConfig,
                  pf_cfg: PFConfig, generator: torch.Generator | None = None,
                  noise: PFNoise | None = None) -> tuple[PFState, PFOutputs]:
@@ -417,15 +455,140 @@ def pf_scan_bank(states: PFState, Z: torch.Tensor, post: core.Posterior,
                                generator=generator, noise=noise)
 
 
+#: Training-set size past which the JAX package measured its exact
+#: posterior's f32 variance quad breaking classification on the TPU at
+#: its default matmul precision (0.547 frame accuracy at Ny = 5,120).
+_EXACT_QUAD_SAFE_N = 4096
+
+#: Training-set size above which ``posterior='auto'`` deploys an exact
+#: model through its compressed posterior.
+AUTO_COMPRESS_N = 1024
+
+#: FLOP-parity bound of the 'auto' policy: the compressed quad costs two
+#: O(N q P) products against the exact quad's one O(N^2 P), so past
+#: q = N/2 compression cannot pay and 'auto' deploys the exact posterior.
+AUTO_COMPRESS_MAX_Q_FRAC = 0.5
+
+#: Flat-spectrum advisory band: past q/N = 0.20 'auto' still compresses,
+#: and warns that a rank this high usually means an early-stopped or
+#: drifting model.
+AUTO_COMPRESS_FLAT_Q_FRAC = 0.20
+
+
+def resolve_posterior(gpmdm, posterior="auto"):
+    """The JAX package's deployment policy: the posterior that
+    ``posterior`` names for ``gpmdm``.
+
+    - ``'auto'`` (the ``GPMDM_PF`` default): a guard-measured deployment
+      recommendation that the checkpoint carries wins ('compressed' with
+      its ranks, or 'exact'; 'sparsified' raises ``NotImplementedError``,
+      since the port has no sparsified posterior).  Without one, the
+      model's own exact posterior, swapped for
+      ``gpmdm.compressed_posterior()`` when Ny > ``AUTO_COMPRESS_N``,
+      unless its rank is past the FLOP-parity bound
+      (``AUTO_COMPRESS_MAX_Q_FRAC``; warns and deploys exact).  A rank in
+      the flat-spectrum band warns and compresses.  The decision reads
+      the layout only, so a loaded checkpoint that lands on its persisted
+      compressed cache never builds the exact posterior.
+    - ``'exact'`` or ``None``: the model's own posterior.
+    - ``'compressed'``: ``gpmdm.compressed_posterior()``.
+    - a posterior object: used as it is.
+    """
+    if posterior is None or (isinstance(posterior, str) and posterior == "exact"):
+        gpmdm._require_posterior()
+        return gpmdm.posterior
+    if not isinstance(posterior, str):
+        return posterior
+    if posterior == "compressed":
+        return gpmdm.compressed_posterior()
+    if posterior != "auto":
+        raise ValueError(f"posterior={posterior!r}: expected 'auto', 'exact', "
+                         "'compressed', or a posterior object")
+    rec = gpmdm._deploy_recommendation
+    if rec:
+        fam = rec.get("family")
+        if fam == "compressed":
+            return gpmdm.compressed_posterior(rank_y=rec.get("rank_y"),
+                                              rank_x=rec.get("rank_x"))
+        if fam == "exact":
+            gpmdm._require_posterior()
+            return gpmdm.posterior
+        if fam == "sparsified":
+            # deploying another posterior would serve something other than
+            # what the JAX package serves for this checkpoint
+            raise NotImplementedError(
+                "deploy recommendation 'sparsified' (a distilled SGPR "
+                "posterior) is not ported (ROADMAP A.3); pass "
+                "posterior='exact' or 'compressed' to choose another")
+        warnings.warn(f"ignoring unknown deploy recommendation {rec!r}; "
+                      "falling back to the size-threshold policy", stacklevel=3)
+    N = gpmdm.layout.Ny
+    if N <= AUTO_COMPRESS_N:
+        gpmdm._require_posterior()
+        return gpmdm.posterior
+    cp = gpmdm.compressed_posterior()
+    if cp.rank_y > AUTO_COMPRESS_MAX_Q_FRAC * N:
+        # the cache entry stays: GPMDM_PF re-resolves 'auto' on every call,
+        # and evicting would re-run the eigendecomposition each time;
+        # save_model leaves such an entry out instead
+        warnings.warn(
+            f"posterior='auto': spectral quad rank {cp.rank_y}/{N} is past the "
+            "q=N/2 FLOP-parity bound (near-identity Gram); compression cannot "
+            "pay — deploying the EXACT posterior.  Pass posterior='compressed' "
+            "or a compressed_posterior(rank_y=...) object to override.",
+            stacklevel=3)
+        gpmdm._require_posterior()
+        return gpmdm.posterior
+    if cp.rank_y > AUTO_COMPRESS_FLAT_Q_FRAC * N:
+        warnings.warn(
+            f"posterior='auto': spectral quad rank {cp.rank_y}/{N} is in the "
+            f"flat-spectrum band (> {AUTO_COMPRESS_FLAT_Q_FRAC:.0%} of Ny): "
+            "compression still deploys (it beat exact on both speed and accuracy "
+            "on the measured flat-spectrum asset) but a rank this high usually "
+            "means an early-stopped or drifting model — validate with an "
+            "accuracy guard (utils.asset_guard.guard_report).",
+            stacklevel=3)
+    return cp
+
+
+def warn_if_unsafe_exact(post, pf_cfg: PFConfig) -> None:
+    """Warn when an exact posterior is deployed at a size where the JAX
+    package measured its quad breaking classification on the TPU.  The
+    condition is the JAX package's, on the precision names that the port
+    carries and ignores; the message says what the port measured."""
+    effective_quad = pf_cfg.quad_precision or pf_cfg.precision
+    if (isinstance(post, core.Posterior) and post.X.shape[0] > _EXACT_QUAD_SAFE_N
+            and effective_quad != "highest" and post.X.dtype != torch.float64):
+        warnings.warn(
+            f"exact GP posterior with Ny={post.X.shape[0]} > {_EXACT_QUAD_SAFE_N}: "
+            "the JAX package measured its variance quad breaking classification "
+            "at this scale on the TPU under its 'high' matmul precision (0.547 "
+            "frame accuracy at Ny=5120).  The port computes the quad in full "
+            "fp32, where the Ny=5120 asset's exact banked guard read 0.9978 on "
+            "an NVIDIA H100 (chip_smoke.py); model.compressed_posterior() serves "
+            "this size in less time.",
+            stacklevel=3)
+
+
 class GPMDM_PF:
     """Stateful filter over a trained model (reference ``GPMDM_PF`` API):
     ``update(z)`` per frame or ``run(Z)`` per sequence, the readouts of the
     last frame, and ``reset()`` to restart from ``seed``.  Runs on the
-    model's device."""
+    model's device.
+
+    ``posterior`` picks the deployed posterior through
+    :func:`resolve_posterior`: ``'auto'`` (default), ``'exact'`` or
+    ``None``, ``'compressed'``, or a posterior object.  A string stays
+    unpinned and is resolved again on every call, so a later
+    ``train_adam`` is served at once; an object pins it."""
 
     def __init__(self, gpmdm, markov_switching_model, num_particles: int,
-                 config: Optional[PFConfig] = None, seed: int = 0):
+                 config: Optional[PFConfig] = None, seed: int = 0, posterior="auto"):
         self._gpmdm = gpmdm
+        if posterior is None or isinstance(posterior, str):
+            self._posterior_mode, self._posterior_override = posterior, None
+        else:
+            self._posterior_mode, self._posterior_override = None, posterior
         T = np.asarray(markov_switching_model, dtype=np.float64)
         if T.shape != (gpmdm.n_classes, gpmdm.n_classes):
             raise ValueError(
@@ -435,23 +598,33 @@ class GPMDM_PF:
         self.pf_config = dataclasses.replace(config or PFConfig(),
                                              num_particles=num_particles)
         self._seed = seed
+        warn_if_unsafe_exact(self._post, self.pf_config)
         self.reset()
+
+    @property
+    def _post(self):
+        if self._posterior_override is not None:
+            return self._posterior_override
+        return resolve_posterior(self._gpmdm, self._posterior_mode)
 
     def reset(self) -> None:
         """Re-initialize the particles and the generator from the seed."""
         self.generator = torch.Generator(device=self._gpmdm.device)
         self.generator.manual_seed(self._seed)
-        self.state = pf_init(self._gpmdm.posterior, self._gpmdm.layout.y_class_offsets,
+        self.state = pf_init(self._post, self._gpmdm.layout.y_class_offsets,
                              self.generator, self.pf_config)
         self._last_outputs: Optional[PFOutputs] = None
 
     def _z(self, Z):
-        return torch.as_tensor(np.asarray(Z), device=self._gpmdm.device).to(self._gpmdm.dtype)
+        """Observations as a tensor on the model's device in its dtype:
+        from numpy, a list, or a tensor on any device."""
+        Z = Z if torch.is_tensor(Z) else torch.as_tensor(np.asarray(Z))
+        return Z.to(device=self._gpmdm.device, dtype=self._gpmdm.dtype)
 
     def update(self, z) -> PFOutputs:
         """One per-frame update."""
         m = self._gpmdm
-        self.state, out = pf_step(self.state, self._z(z).reshape(-1), m.posterior,
+        self.state, out = pf_step(self.state, self._z(z).reshape(-1), self._post,
                                   m.params, self._log_T, m.config, self.pf_config,
                                   generator=self.generator)
         self._last_outputs = out
@@ -463,7 +636,7 @@ class GPMDM_PF:
         Z = self._z(Z)
         if Z.ndim == 1:
             Z = Z[None, :]
-        self.state, outs = pf_scan(self.state, Z, m.posterior, m.params, self._log_T,
+        self.state, outs = pf_scan(self.state, Z, self._post, m.params, self._log_T,
                                    m.config, self.pf_config, generator=self.generator)
         self._last_outputs = PFOutputs(**{
             f.name: getattr(outs, f.name)[-1] for f in dataclasses.fields(PFOutputs)

@@ -45,8 +45,10 @@ PARAM_FIELDS = (
 def tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
     """A C-contiguous copy of the array ``a`` on ``device`` in ``dtype``,
     0-d kept: a checkpoint may store arrays in Fortran order, which
-    ``torch.tensor`` would keep, and the CUDA kernels take C order only."""
-    return torch.tensor(np.asarray(a), device=device).to(dtype).contiguous()
+    ``torch.tensor`` would keep, the eigenvectors of ``eigh`` come
+    reversed (negative strides, which torch refuses), and the CUDA kernels
+    take C order only."""
+    return torch.tensor(np.array(a, order="C"), device=device).to(dtype).contiguous()
 
 
 @dataclasses.dataclass

@@ -8,7 +8,11 @@ reference's constructor and method names (``add_data``, ``init_X``,
 the host; ``init_X`` freezes the data layout and creates the parameters on
 the model's device (``'cuda'`` unless the caller passes ``device='cpu'``);
 training runs there, and every posterior refresh factors the trained
-parameters on the host in float64 (``core.precompute_host``).
+parameters on the host in float64 (``core.precompute_host``).  A loaded
+checkpoint defers that factorization to the first use of ``posterior``,
+so a deployment served from the persisted compressed posterior
+(``compressed_posterior``, ``filter.particle_filter.resolve_posterior``)
+never builds the exact one.
 """
 
 from __future__ import annotations
@@ -106,9 +110,33 @@ class GPMDM:
         ]
         self.layout: Optional[DataLayout] = None
         self.params: Optional[core.GPMDMParams] = None
-        self.posterior: Optional[core.Posterior] = None
+        self.posterior = None
+        self._compressed_cache: dict = {}
         self._opt_state = None
         self._training_mode = "all"
+        # a guard-measured deployment verdict ({'family': ...}) and the guard
+        # receipt, carried from and to the checkpoint's meta
+        self._deploy_recommendation: Optional[dict] = None
+        self._guard_receipt: Optional[dict] = None
+
+    @property
+    def posterior(self) -> Optional[core.Posterior]:
+        """The exact posterior, built on first use when a checkpoint load
+        deferred it.  A failed build leaves the load's parameters stashed,
+        so the next use tries again."""
+        if self._posterior is None and self._posterior_pending:
+            self._posterior = core.precompute_host(
+                self._lazy_host_params if self._lazy_host_params is not None
+                else self.params, self.get_Y(), self.config, self.layout, self.device)
+            self._posterior_pending = False
+            self._lazy_host_params = None
+        return self._posterior
+
+    @posterior.setter
+    def posterior(self, value) -> None:
+        self._posterior = value
+        self._posterior_pending = False
+        self._lazy_host_params = None
 
     @classmethod
     def from_config(cls, config: GPMDMConfig, device="cuda",
@@ -223,26 +251,64 @@ class GPMDM:
         self._opt_state = None
         self._precompute_kernel_inverses()
 
-    def set_params(self, host_params: dict) -> None:
+    def set_params(self, host_params: dict, lazy: bool = False) -> None:
         """Freeze the layout, take the parameters and build the posterior
-        from float64 ``host_params`` (numpy arrays keyed by field name)."""
+        from float64 ``host_params`` (numpy arrays keyed by field name);
+        ``lazy`` defers the build to the posterior's first use."""
         self.layout = self._build_layout()
         self.params = params_from_numpy(host_params, self.dtype, self.device)
-        self._precompute_kernel_inverses(host_params)
+        self._precompute_kernel_inverses(host_params, lazy=lazy)
 
     def _require_init(self):
         if self.params is None:
             raise RuntimeError("model not initialized; call init_X() first")
 
-    def _precompute_kernel_inverses(self, host_params=None) -> None:
+    def _require_posterior(self) -> None:
+        self._require_init()
+        if self.posterior is None:
+            self._precompute_kernel_inverses()
+
+    def _precompute_kernel_inverses(self, host_params=None, lazy: bool = False) -> None:
         """Refresh the exact posterior: the parameters (``host_params``, when
         the caller already holds them in float64, else ``self.params``
         copied to the host) factored in float64 on the host and deployed in
-        the model dtype on the model's device."""
+        the model dtype on the model's device; with ``lazy``, at the
+        posterior's first use.  A refresh empties the compressed cache and
+        drops the deployment verdict, both made from the old parameters."""
         self._require_init()
+        self._compressed_cache = {}
+        self._deploy_recommendation = None
+        if lazy:
+            self._posterior = None
+            self._posterior_pending = True
+            self._lazy_host_params = host_params
+            return
         self.posterior = core.precompute_host(
             host_params if host_params is not None else self.params,
             self.get_Y(), self.config, self.layout, self.device)
+
+    def compressed_posterior(self, rank_y: int | None = None, rank_x: int | None = None,
+                             tol: float = 1e-6):
+        """The low-rank-quad deployment posterior (``models.compressed``):
+        exact mean, variance quad in O(N q P) a frame.  Pass it as
+        ``GPMDM_PF(..., posterior=...)``.  Cached per ``(rank_y, rank_x,
+        tol)`` until the next posterior refresh, and persisted by
+        :meth:`save`, so a loaded checkpoint deploys it with no O(N^3)
+        work.  While a load has deferred the exact build, the load's
+        float64 parameters are used."""
+        from .compressed import compress_host
+
+        self._require_init()
+        # built-in types: numpy integers are valid ranks, but the key is
+        # written to the checkpoint's JSON
+        key = (None if rank_y is None else int(rank_y),
+               None if rank_x is None else int(rank_x), float(tol))
+        if key not in self._compressed_cache:
+            hp = self._lazy_host_params if self._posterior_pending else None
+            self._compressed_cache[key] = compress_host(
+                hp if hp is not None else self.params, self.get_Y(), self.config,
+                self.layout, rank_y=rank_y, rank_x=rank_x, tol=tol, device=self.device)
+        return self._compressed_cache[key]
 
     # ------------------------------------------------------------- training
 

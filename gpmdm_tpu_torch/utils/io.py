@@ -5,16 +5,21 @@ A checkpoint holds the config and the constructor's initial
 hyperparameters as JSON (``meta_json``), the trained parameters
 (``param_<field>``), the raw observation sequences (``obs_<class>_<i>``)
 and the Adam state (``opt_<i>``, optax's leaf order: count, then the first
-and second moments in ``PARAM_FIELDS`` order).  Either package reads what
-the other writes, and training resumes from the saved Adam state.  This
-reader takes the exact ``GPMDM`` family only.  The JAX package's posterior
-caches (``comp_*``, ``sparsified_*``) are neither read nor written, and an
-L-BFGS state is not read: the exact posterior is rebuilt from the
-parameters in float64 on the host.
+and second moments in ``PARAM_FIELDS`` order), the compressed-posterior
+cache (``comp_<j>_<field>``, keyed by ``compressed_keys`` and
+``compressed_entry_idx`` in the meta), the deployment recommendation and
+the guard receipt.  Either package reads what the other writes, and
+training resumes from the saved Adam state.  This reader takes the exact
+``GPMDM`` family only.  Loading defers the exact posterior's float64
+factorization to its first use, so a deployment served from the persisted
+compressed cache never builds it.  The sparsified caches
+(``sparsified_*``) are neither read nor written, and an L-BFGS state is
+not read.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from pathlib import Path
@@ -24,6 +29,7 @@ import torch
 
 from ..config import GPMDMConfig
 from ..models import core
+from ..models.compressed import CompressedPosterior
 from ..models.gpmdm import GPMDM
 from ..train.trainer import AdamState
 
@@ -31,10 +37,12 @@ FORMAT_VERSION = 1
 
 
 def save_model(model: GPMDM, file_path) -> None:
-    """Write ``model`` as a format-1 checkpoint at exactly ``file_path``.
-
-    The posterior caches of the JAX package (``comp_*``, ``sparsified_*``)
-    are not written: the port builds neither.
+    """Write ``model`` as a format-1 checkpoint at exactly ``file_path``,
+    with its compressed-posterior cache (an entry cached under several
+    keys written once; an 'auto'-rank entry past the q = N/2 FLOP-parity
+    bound, which ``resolve_posterior('auto')`` would not deploy, left
+    out), its deployment recommendation and its guard receipt.  No
+    sparsified cache is written: the port builds none.
     """
     file_path = Path(file_path)
     meta = {
@@ -59,6 +67,26 @@ def save_model(model: GPMDM, file_path) -> None:
         leaves = model._opt_state.to_numpy()
         meta["n_opt_leaves"] = len(leaves)
         arrays.update({f"opt_{i}": leaf for i, leaf in enumerate(leaves)})
+    from ..filter.particle_filter import AUTO_COMPRESS_MAX_Q_FRAC
+
+    keys, entry_idx, seen = [], [], {}
+    for key, post in model._compressed_cache.items():
+        if key[0] is None and post.rank_y > AUTO_COMPRESS_MAX_Q_FRAC * post.Uy.shape[0]:
+            continue
+        keys.append(list(key))
+        j = seen.get(id(post))
+        if j is None:
+            j = seen[id(post)] = len(seen)
+            for f in dataclasses.fields(post):
+                arrays[f"comp_{j}_{f.name}"] = getattr(post, f.name).detach().cpu().numpy()
+        entry_idx.append(j)
+    if keys:
+        meta["compressed_keys"] = keys
+        meta["compressed_entry_idx"] = entry_idx
+    if model._deploy_recommendation:
+        meta["deploy_recommendation"] = model._deploy_recommendation
+    if model._guard_receipt:
+        meta["guard_receipt"] = model._guard_receipt
     arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode("utf-8"), dtype=np.uint8)
     file_path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(file_path, **arrays)
@@ -72,7 +100,8 @@ def save_model(model: GPMDM, file_path) -> None:
 
 def load_model(file_path, device="cuda") -> GPMDM:
     """Load an exact GPMDM checkpoint onto ``device``, with its Adam state
-    when it has one."""
+    when it has one and its compressed-posterior cache; the exact
+    posterior is built at its first use."""
     file_path = Path(file_path)
     with np.load(file_path) as data:
         meta = json.loads(bytes(data["meta_json"]).decode("utf-8"))
@@ -101,7 +130,21 @@ def load_model(file_path, device="cuda") -> GPMDM:
         opt_leaves = None
         if meta.get("has_opt_state") and meta.get("optimizer_name", "adam") == "adam":
             opt_leaves = [data[f"opt_{i}"] for i in range(meta["n_opt_leaves"])]
-    model.set_params(host_params)
+        comp_keys = meta.get("compressed_keys") or []
+        # entry j's arrays, shared by the keys that map to it (1:1 in
+        # checkpoints written before aliases)
+        comp_idx = meta.get("compressed_entry_idx", list(range(len(comp_keys))))
+        comp_arrays = {j: {f.name: data[f"comp_{j}_{f.name}"]
+                           for f in dataclasses.fields(CompressedPosterior)}
+                       for j in set(comp_idx)}
+    model.set_params(host_params, lazy=True)
+    # after the refresh, which empties the cache and drops the verdict:
+    # both were made from these parameters
+    built = {j: CompressedPosterior.from_numpy(a, model.dtype, model.device)
+             for j, a in comp_arrays.items()}
+    model._compressed_cache = {tuple(k): built[j] for k, j in zip(comp_keys, comp_idx)}
+    model._deploy_recommendation = meta.get("deploy_recommendation") or None
+    model._guard_receipt = meta.get("guard_receipt") or None
     if opt_leaves is not None:
         model._opt_state = AdamState.from_numpy(opt_leaves, model.dtype, model.device)
     return model

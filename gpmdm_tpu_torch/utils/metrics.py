@@ -168,8 +168,10 @@ def evaluate_pf_banked(
     banks draw from one generator seeded with ``seed``).
 
     An explicit ``num_particles`` wins over ``config``'s.  ``posterior``
-    overrides the model's own and must be an exact posterior
-    (``models.core.Posterior``), the only kind the port has.
+    overrides the model's own: an exact ``models.core.Posterior`` or a
+    ``models.compressed.CompressedPosterior`` (``model.compressed_posterior()``).
+    ``None`` means the model's OWN posterior, not the deployment policy:
+    pass ``filter.particle_filter.resolve_posterior(model, 'auto')`` for that.
     ``max_banks`` caps the filters per call: chunks are padded to exactly
     ``max_banks`` rows (invalid, sliced off), and the random streams then
     depend on the chunking.  ``logger`` (``utils.logging.MetricLogger``)
@@ -180,7 +182,6 @@ def evaluate_pf_banked(
 
     from ..config import PFConfig
     from ..filter import particle_filter as pf
-    from ..models import core
 
     B = len(test_seqs)
     n_classes = model.n_classes
@@ -191,9 +192,6 @@ def evaluate_pf_banked(
     else:
         pfc = PFConfig(num_particles=num_particles or 100)
     post = posterior if posterior is not None else model.posterior
-    if not isinstance(post, core.Posterior):
-        raise TypeError("evaluate_pf_banked: the port has only the exact posterior "
-                        f"(models.core.Posterior), got {type(post).__name__}")
     dev = post.X.device
     log_T = torch.log(torch.as_tensor(np.asarray(T_matrix, dtype=np.float64),
                                       device=dev).to(model.dtype))

@@ -332,3 +332,49 @@ def test_cuda_x_posterior_classes_take_offset_views(one_pass):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     _check_classes_against_f64(t, got, N)
+
+
+def _f64(obj):
+    """A dataclass of tensors copied to the CPU in float64."""
+    import dataclasses
+
+    return type(obj)(**{f.name: getattr(obj, f.name).detach().cpu().double()
+                        for f in dataclasses.fields(obj)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("asset", ["bench_model_n2048.npz", "bench_model_c8n5120.npz"])
+def test_cuda_compressed_predictions_match_f64(asset):
+    """The compressed posterior's predictions, all cuBLAS fp32 products on
+    the card (TF32 off), against the same posterior and points in float64
+    on the CPU: each output's max error within 4 x the CPU's fp32 error
+    against the same float64 values, + 1e-6 x its largest magnitude.  The
+    assets' own persisted caches, at their initial clouds of 4,096."""
+    from pathlib import Path
+
+    from gpmdm_tpu_torch.filter import particle_filter as pf
+    from gpmdm_tpu_torch.models import compressed
+    from gpmdm_tpu_torch.utils.io import load_model
+
+    dev = _cuda_or_skip()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    path = Path(__file__).resolve().parents[1] / "bench_assets" / asset
+    m = load_model(path, device=dev)
+    cp = pf.resolve_posterior(m, "compressed")
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = pf.pf_init(cp, m.layout.y_class_offsets, g, pf.PFConfig(num_particles=4096)).x
+    cfg = m.config
+    cpu_cp, cpu_params = cp.to("cpu"), type(m.params)(**{
+        k: v.cpu() for k, v in vars(m.params).items()})
+    for name in ("predict_y", "predict_x_all_classes"):
+        fn = getattr(compressed, name)
+        got = fn(cp, m.params, x, cfg, with_noise=True)
+        cpu32 = fn(cpu_cp, cpu_params, x.cpu(), cfg, with_noise=True)
+        want = fn(_f64(cp), _f64(m.params), x.cpu().double(), cfg, with_noise=True)
+        torch.cuda.synchronize()
+        assert m._posterior is None
+        for label, gg, c32, w in zip(("mean", "var"), got, cpu32, want):
+            assert torch.isfinite(gg).all(), (name, label)
+            err = (gg.cpu().double() - w).abs().max().item()
+            ref = (c32.double() - w).abs().max().item()
+            assert err <= 4 * ref + 1e-6 * w.abs().max().item(), (name, label, err, ref)
