@@ -96,12 +96,35 @@ Phases, each printing one JSON line on stdout:
              at n5120 its banked guard, gated at 0.90 (the full-fp32 K1 /
              K2 at Ny = 5,120, past the size where the JAX package's
              reduced-precision quad failed on the TPU).
-   compressed_c8n5120 - the 8-class Ny = 5,120 asset: 'auto' raises (it
-             recommends a sparsified posterior, not ported); with the
-             recommendation set aside 'auto' warns that the rank
+   compressed_c8n5120 - the 8-class Ny = 5,120 asset, its sparsified
+             recommendation set aside: 'auto' warns that the rank
              (1149 / 5120) is in the flat-spectrum band; posterior=
              'compressed' serves a 200-frame path and the guard (16 banks
              a call), reported, not gated.
+   sparse phases - the SGPR posteriors, cuBLAS fp32 products and
+             triangular solves (no Pallas kernel in the JAX package), and
+             K3: K1 = K2 = 0 and K3 = frames (padded frames, times the
+             calls, on a guard) on each, TF32 off, peak device memory.
+             Each guard is evaluate_pf_banked at P = 10,000 unless named.
+             - sparse_hourlong: the SparseGPMDM of
+               bench_model_hourlong.npz (Ny = 108,000, M = 128), load
+               timed; 'auto' must serve its own posterior; 200-frame path
+               (best of 2) and bench.py:530-539's banked guard (12 trials
+               x 600 frames), gated at 0.90.
+             - sparse_hourlongh, sparse10240: 'auto' and the guard of
+               utils.asset_guard's SHAPES, reported.
+             - sparsified_c8: 'auto' must serve the persisted kmeans-128
+               distillation with no exact build; path and the c8 guard
+               (bench.py:327-366), reported.
+             - sparsified_c8n5120: 'auto' must serve the persisted
+               kmeans-384 distillation; path and the guard in 3 calls of
+               16 banks, gated at 0.90.
+             - sparsified_fleet: bench_model.npz's persisted M = 128
+               distillation, 64 banks x 1,000 x 64 frames at
+               quad_precision='high', best of 3, and its guard at P =
+               1,000, gated at 0.90 (bench.py:566-590).
+             With --profile, hourlong's (1 and 12 banks of 10,000) and the
+             distilled fleet's breakdowns.
 9. train   - trains the bench_model.npz recipe on the card
              (bench_assets/README.md: D = 35, d = 2, 2 classes, 4 x 60
              frames each, sigma_n inits 0.1, f32, 300 Adam steps at lr
@@ -146,6 +169,8 @@ N_PARTICLES = 10_000
 N_FRAMES = 1000
 TIMED_RUNS = 4
 FLEET_BANKS, FLEET_PARTICLES, FLEET_FRAMES = 64, 1000, 64
+# timed runs of the sparsified fleet (bench.py:566-590)
+SPARSE_FLEET_RUNS = 3
 GUARD_MIN_FRAME_ACC = 0.90
 # particle tiles of the posterior kernels, each timed beside the launcher's
 # own choice
@@ -532,7 +557,8 @@ def main(argv) -> int:
     def check_launches(label, frames, exact=True):
         """The counters against ``frames`` frames of one launch each of K1
         (every class at once), K2 and K3, whatever the number of banks and
-        classes; on the compressed posterior (``exact=False``) of K3 alone."""
+        classes; on a compressed or sparse posterior (``exact=False``) of K3
+        alone."""
         got = {**gpk.LAUNCHES, **rs.LAUNCHES}
         k = frames if exact else 0
         want = {"fused_x_posterior": k, "fused_rbf_posterior": 0,
@@ -631,13 +657,13 @@ def main(argv) -> int:
     _phase[0] = "fleet"
     Zf = Z[None, :FLEET_FRAMES].expand(FLEET_BANKS, FLEET_FRAMES, D)
 
-    def run_fleet(config):
+    def run_fleet(config, post_=post):
         g = torch.Generator(device=dev).manual_seed(1)
-        s0 = pf.pf_init_bank(post, offsets, g, config, FLEET_BANKS)
+        s0 = pf.pf_init_bank(post_, offsets, g, config, FLEET_BANKS)
         reset_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        _, o = pf.pf_scan_bank(s0, Zf, post, params, log_T, cfg, config, generator=g)
+        _, o = pf.pf_scan_bank(s0, Zf, post_, params, log_T, cfg, config, generator=g)
         torch.cuda.synchronize()
         return time.perf_counter() - t, o
 
@@ -656,6 +682,7 @@ def main(argv) -> int:
           "agg_fps": FLEET_BANKS * FLEET_FRAMES / min(fleet_walls), "walls_s": fleet_walls,
           "plain_agg_fps": FLEET_BANKS * FLEET_FRAMES / fleet_plain_wall,
           "device": kind, "nvidia_smi": smi})
+
     def extra_asset(label, fname, Zx, trials, trial_labels, T):
         """The asset's 200-frame path at P = 10,000 and its banked guard on
         bench.py's trials, each with exact launch counts; the guard's
@@ -699,7 +726,8 @@ def main(argv) -> int:
               "plain_banked_guard": {"frame_acc": plain.frame_metrics["accuracy"],
                                      "frame_f1": plain.frame_metrics["f1"]},
               "device": kind, "nvidia_smi": smi})
-        return path_launches, guard_launches
+        return path_launches, guard_launches, {"frame_acc": rep.frame_metrics["accuracy"],
+                                               "frame_f1": rep.frame_metrics["f1"]}
 
     # bench.py's extras: d4 on the headline's stream and trials; c8 on its
     # 8-class task (bench.py:328-366), deployed exact
@@ -876,12 +904,6 @@ def main(argv) -> int:
     _phase[0] = "compressed_c8n5120"
     check_precision("compressed_c8n5120")
     m = GPMDM.load(os.path.join(ROOT, "bench_assets", "bench_model_c8n5120.npz"), device=dev)
-    try:
-        pf.resolve_posterior(m, "auto")
-        raise AssertionError("compressed_c8n5120: 'auto' served a posterior in place of "
-                             "the sparsified one it recommends")
-    except NotImplementedError as e:
-        auto_error = str(e)[:120]
     rec, m._deploy_recommendation = m._deploy_recommendation, None
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -912,7 +934,7 @@ def main(argv) -> int:
     compressed_launches["compressed_c8n5120_path"] = lp
     compressed_launches["compressed_c8n5120_banked_guard"] = lg
     emit({"phase": "compressed_c8n5120", "Ny": m.layout.Ny, "classes": m.n_classes,
-          "rank_y": cpx.rank_y, "rank_x": cpx.rank_x, "auto_error": auto_error,
+          "rank_y": cpx.rank_y, "rank_x": cpx.rank_x,
           "flat_band_warning": flat[0][:120], "particles": N_PARTICLES, "frames": EXTRA_FRAMES,
           "path_launches": lp, "fps": EXTRA_FRAMES / min(walls), "walls_s": walls,
           "path_peak_gib": path_peak,
@@ -927,6 +949,174 @@ def main(argv) -> int:
           "receipt": m._guard_receipt, "device": kind, "nvidia_smi": smi})
     del m, cpx, flt
     torch.cuda.empty_cache()
+
+    # The sparse family: SGPR posteriors (cuBLAS products and triangular
+    # solves) and K3, K1 = K2 = 0 on every phase.
+    sparse_launches = {}
+
+    def sparse_guard(label, m, post, trials, trial_labels, T, config, gated, max_banks=None):
+        """evaluate_pf_banked on post with exact launch counts (K3 once a
+        padded frame of every call): its report as a dict, gated at
+        GUARD_MIN_FRAME_ACC when ``gated``."""
+        check_precision(label)
+        T_pad_x = pf.bucket_length(max(len(q) for q in trials))
+        n_calls = 1 if max_banks is None else -(-len(trials) // max_banks)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        rep = evaluate_pf_banked(m, T, trials, trial_labels, burn_in=5, seed=0, config=config,
+                                 posterior=post, max_banks=max_banks)
+        lg = check_launches(f"{label} banked guard", n_calls * T_pad_x, exact=False)
+        check_precision(label)
+        sparse_launches[f"{label}_banked_guard"] = lg
+        acc = rep.frame_metrics["accuracy"]
+        out = {"frame_acc": acc, "frame_f1": rep.frame_metrics["f1"],
+               "trial_acc": rep.trial_metrics["accuracy"], "frames": rep.total_frames,
+               "banks": len(trials), "banks_per_call": max_banks or len(trials),
+               "particles_per_bank": config.num_particles, "padded_frames": T_pad_x,
+               "wall_s": rep.total_wall_s, "agg_fps": rep.fps, "launches": lg,
+               "peak_gib": peak_gib(), "gated": gated}
+        if gated and not acc >= GUARD_MIN_FRAME_ACC:
+            emit({"phase": label, "banked_guard": out})
+            raise AssertionError(f"{label}: banked guard frame accuracy {acc} < "
+                                 f"{GUARD_MIN_FRAME_ACC}")
+        return out
+
+    def sparse_path(label, m, post, Zx, T, runs=2):
+        """GPMDM_PF's path over Zx at P = 10,000 on post, best of ``runs``,
+        with exact launch counts and finite outputs."""
+        check_precision(label)
+        torch.cuda.reset_peak_memory_stats()
+        flt = GPMDM_PF(m, T, N_PARTICLES, config=pfc, seed=0, posterior=post)
+        reset_launches()
+        wall, o = timed_filter(flt, Zx)
+        lp = check_launches(f"{label} path", len(Zx), exact=False)
+        check_outputs(f"{label} path", o, len(Zx), m.n_classes)
+        walls = [wall] + [timed_filter(flt, Zx)[0] for _ in range(runs - 1)]
+        sparse_launches[f"{label}_path"] = lp
+        return {"particles": N_PARTICLES, "frames": len(Zx), "path_launches": lp,
+                "fps": len(Zx) / min(walls), "walls_s": walls, "path_peak_gib": peak_gib()}
+
+    def describe(post):
+        return {"My": post.Zy.shape[0], "Mx": post.Zx.shape[1], "classes": post.Zx.shape[0],
+                "Ny": post.X.shape[0], "distilled": post.distilled,
+                "variance_path": ("hoisted" if pf._effective_quad_precision(pfc, post)
+                                  else "trisolve")}
+
+    def load_sparse(fname):
+        """A SparseGPMDM asset as loaded, the load timed, and the posterior
+        'auto' serves: its own."""
+        t0 = time.perf_counter()
+        m = GPMDM.load(os.path.join(ROOT, "bench_assets", fname), device=dev)
+        load_s = time.perf_counter() - t0
+        post = pf.resolve_posterior(m, "auto")
+        if type(m).__name__ != "SparseGPMDM" or post is not m.posterior or post.distilled:
+            raise AssertionError(f"{fname}: 'auto' did not serve the sparse model's own "
+                                 "posterior")
+        return m, post, load_s
+
+    _phase[0] = "sparse_hourlong"
+    m, post_s, load_s = load_sparse("bench_model_hourlong.npz")
+    entry = {"phase": "sparse_hourlong", "load_s": load_s, **describe(post_s),
+             **sparse_path("sparse_hourlong", m, post_s, Z[:EXTRA_FRAMES].contiguous(),
+                           TRANSITIONS)}
+    if "--profile" in argv:
+        for nb, frames in ((1, 50), (len(ag.guard_trials("hourlong")[0]), 10)):
+            g = torch.Generator(device=dev).manual_seed(0)
+            st = pf.pf_init_bank(post_s, m.layout.y_class_offsets, g, pfc, nb)
+            Zb = Z[None, :frames].expand(nb, frames, m.D)
+            emit({"phase": "profile", "path": f"sparse_hourlong_{nb}x{N_PARTICLES}",
+                  "banks": nb, "particles": N_PARTICLES,
+                  **profile(lambda: pf.pf_scan_bank(st, Zb, post_s, m.params, log_T, m.config,
+                                                    pfc, generator=g), frames)})
+    entry["banked_guard"] = sparse_guard("sparse_hourlong", m, post_s,
+                                         *ag.guard_trials("hourlong"), pfc, gated=True)
+    emit({**entry, "receipt": m._guard_receipt, "min_frame_acc": GUARD_MIN_FRAME_ACC,
+          "device": kind, "nvidia_smi": smi})
+    del m, post_s
+
+    for name, fname, shape in (("sparse_hourlongh", "bench_model_hourlongh.npz", "hourlong"),
+                               ("sparse10240", "bench_model_sparse10240.npz", "sparse10240")):
+        _phase[0] = name
+        m, post_s, load_s = load_sparse(fname)
+        guard = sparse_guard(name, m, post_s, *ag.guard_trials(shape), pfc, gated=False)
+        emit({"phase": name, "load_s": load_s, **describe(post_s), "banked_guard": guard,
+              "receipt": m._guard_receipt, "device": kind, "nvidia_smi": smi})
+        del m, post_s
+        torch.cuda.empty_cache()
+
+    def load_sparsified(fname, key):
+        """An exact asset as loaded and the posterior 'auto' serves: the
+        persisted distillation under ``key``, with no exact build and no
+        distillation."""
+        m = GPMDM.load(os.path.join(ROOT, "bench_assets", fname), device=dev)
+        post = pf.resolve_posterior(m, "auto")
+        if post is not m._sparsified_cache.get(key) or not post.distilled \
+                or m._posterior is not None:
+            raise AssertionError(f"{fname}: 'auto' did not serve the persisted {key}")
+        return m, post
+
+    _phase[0] = "sparsified_c8"
+    m, post_s = load_sparsified("bench_model_c8.npz", (128, None, "kmeans"))
+    entry = {"phase": "sparsified_c8", **describe(post_s),
+             **sparse_path("sparsified_c8", m, post_s, Z8, T8),
+             "banked_guard": sparse_guard("sparsified_c8", m, post_s, te8, tel8, T8, pfc,
+                                          gated=False)}
+    if m._posterior is not None:
+        raise AssertionError("sparsified_c8: the exact posterior was built")
+    emit({**entry, "exact_c8_banked_guard": c8[2], "device": kind, "nvidia_smi": smi})
+    del m, post_s
+
+    _phase[0] = "sparsified_c8n5120"
+    m, post_s = load_sparsified("bench_model_c8n5120.npz", (384, None, "kmeans"))
+    trials, trial_labels, T85 = ag.guard_trials("c8n5120")
+    Z85 = torch.as_tensor(np.concatenate(trials * 10, axis=0)[:EXTRA_FRAMES], device=dev,
+                          dtype=torch.float32)
+    entry = {"phase": "sparsified_c8n5120", **describe(post_s),
+             **sparse_path("sparsified_c8n5120", m, post_s, Z85, T85),
+             "banked_guard": sparse_guard("sparsified_c8n5120", m, post_s, trials, trial_labels,
+                                          T85, pfc, gated=True,
+                                          max_banks=ag.SHAPES["c8n5120"]["guard_banks"])}
+    if m._posterior is not None:
+        raise AssertionError("sparsified_c8n5120: the exact posterior was built")
+    emit({**entry, "receipt": m._guard_receipt, "recommendation": m._deploy_recommendation,
+          "min_frame_acc": GUARD_MIN_FRAME_ACC, "device": kind, "nvidia_smi": smi})
+    del m, post_s
+    torch.cuda.empty_cache()
+
+    _phase[0] = "sparsified_fleet"
+    check_precision("sparsified_fleet")
+    sp_head = model.sparsified_posterior(128)
+    if sp_head is not model._sparsified_cache.get((128, None)) or not sp_head.distilled:
+        raise AssertionError("sparsified_fleet: not the persisted M = 128 distillation")
+    fleet_q = PFConfig(num_particles=FLEET_PARTICLES, quad_precision="high")
+    torch.cuda.reset_peak_memory_stats()
+    sp_fleet_walls = []
+    for _ in range(SPARSE_FLEET_RUNS):
+        wall, outs = run_fleet(fleet_q, sp_head)
+        sp_fleet_launches = check_launches("sparsified_fleet", FLEET_FRAMES, exact=False)
+        sp_fleet_walls.append(wall)
+    probs = outs.class_probs
+    if probs.shape != (FLEET_BANKS, FLEET_FRAMES, C) or not torch.isfinite(probs).all():
+        raise AssertionError("sparsified_fleet class_probs not finite or of the wrong shape")
+    sparse_launches["sparsified_fleet"] = sp_fleet_launches
+    entry = {"phase": "sparsified_fleet", **describe(sp_head), "banks": FLEET_BANKS,
+             "particles_per_bank": FLEET_PARTICLES, "frames": FLEET_FRAMES,
+             "launches": sp_fleet_launches,
+             "agg_fps": FLEET_BANKS * FLEET_FRAMES / min(sp_fleet_walls),
+             "walls_s": sp_fleet_walls, "peak_gib": peak_gib(),
+             "exact_fleet_agg_fps": FLEET_BANKS * FLEET_FRAMES / min(fleet_walls)}
+    if "--profile" in argv:
+        g = torch.Generator(device=dev).manual_seed(0)
+        st = pf.pf_init_bank(sp_head, offsets, g, fleet_q, FLEET_BANKS)
+        st, _ = pf.pf_scan_bank(st, Zf[:, :5], sp_head, params, log_T, cfg, fleet_q,
+                                generator=g)
+        emit({"phase": "profile", "path": "sparsified_fleet", "banks": FLEET_BANKS,
+              "particles": FLEET_PARTICLES,
+              **profile(lambda: pf.pf_scan_bank(st, Zf[:, 5:25], sp_head, params, log_T, cfg,
+                                                fleet_q, generator=g), 20)})
+    entry["banked_guard"] = sparse_guard(
+        "sparsified_fleet", model, sp_head, q_seqs, q_labels, TRANSITIONS, fleet_q, gated=True)
+    emit({**entry, "min_frame_acc": GUARD_MIN_FRAME_ACC, "device": kind, "nvidia_smi": smi})
 
     def recipe_model(recipe, dtype="float32", device=dev):
         """A PCA-initialized model of the recipe (seed 0, the D of the bench
@@ -1020,7 +1210,8 @@ def main(argv) -> int:
                                   "c8_banked_guard": c8[1][n], "train_guard": train_launches[n],
                                   "compressed_path": comp_path_launches[n],
                                   "compressed_banked_guard": comp_guard_launches[n],
-                                  **{k: v[n] for k, v in compressed_launches.items()}}
+                                  **{k: v[n] for k, v in compressed_launches.items()},
+                                  **{k: v[n] for k, v in sparse_launches.items()}}
 
     _phase[0] = "report"
     heavy = ("path_inputs", "conditioned_inputs")

@@ -11,5 +11,6 @@ The package imports neither JAX nor ``gpmdm_tpu``.
 from .config import GPMDMConfig, PFConfig, TrainConfig
 from .filter.particle_filter import GPMDM_PF
 from .models.gpmdm import GPMDM
+from .models.sparse_gpmdm import SparseGPMDM
 
-__all__ = ["GPMDM", "GPMDMConfig", "GPMDM_PF", "PFConfig", "TrainConfig"]
+__all__ = ["GPMDM", "GPMDMConfig", "GPMDM_PF", "PFConfig", "SparseGPMDM", "TrainConfig"]

@@ -166,12 +166,21 @@ class PFConfig:
     (one observation per bank).  It computes what the JAX package's vmap
     path computes.
 
-    quad_precision, recon_precision and fuse_mean_quad pick the TPU's
-    matmul passes and product split for the JAX package's variance
-    products; they are validated and carried so that configurations
-    round-trip.  The port ignores them: every product runs in IEEE fp32,
-    and both posteriors take the mean and the quad from one pass (the
-    exact one's kernels, the compressed one's single product).
+    quad_precision chooses the sparse posterior's variance path, as in the
+    JAX package (``filter.particle_filter._effective_quad_precision``):
+    'trisolve', or None on a sparse model's own posterior, runs per-frame
+    triangular solves; a precision name, or None on a distilled posterior
+    (``GPMDM.sparsified_posterior``), runs products by the inverses
+    hoisted out of the frame.  Every product is IEEE fp32 here, so the
+    name picks the algorithm, not a precision.  The exact and compressed
+    posteriors ignore it.
+
+    recon_precision and fuse_mean_quad pick the TPU's matmul passes and
+    product split for the JAX package's compressed products; they are
+    validated and carried so that configurations round-trip.  The port
+    ignores them: the exact and compressed posteriors take the mean and
+    the quad from one pass (the exact one's kernels, the compressed one's
+    single product).
     """
 
     num_particles: int = 100

@@ -1,4 +1,4 @@
-"""Switching-state particle filter over a trained exact GPMDM.
+"""Switching-state particle filter over a trained GPMDM.
 
 Counterpart of ``gpmdm_tpu/filter/particle_filter.py``, for one filter
 (``pf_init``, ``pf_step``, ``pf_scan``, ``GPMDM_PF``) or a bank of B
@@ -8,7 +8,8 @@ padded sequence).  One filter is a bank of one.  The GP stages dispatch
 on the posterior's type, as the JAX package's do: the exact
 ``core.Posterior`` runs the fused kernels (the JAX package's
 ``PFConfig(pallas='on')`` path), the ``compressed.CompressedPosterior``
-its cuBLAS products (the JAX package's XLA path).  Each frame runs:
+and the ``sparse.SparsePosterior`` their cuBLAS products and triangular
+solves (the JAX package's XLA path).  Each frame runs:
 
 1. Markov class transition, by inverse CDF: one uniform per particle;
 2. the per-class dynamics posterior (exact: ``fused_x_posterior_classes``,
@@ -23,8 +24,9 @@ its cuBLAS products (the JAX package's XLA path).  Each frame runs:
    resampling.
 
 ``GPMDM_PF`` picks the posterior by the JAX package's deployment policy
-(``resolve_posterior``): by default the exact posterior, or the
-compressed one past ``AUTO_COMPRESS_N`` training rows.
+(``resolve_posterior``): a checkpoint's recommendation first, else the
+exact posterior, or the compressed one past ``AUTO_COMPRESS_N`` training
+rows; a sparse model deploys its own.
 
 Randomness comes from an explicit ``torch.Generator`` on the state's
 device, or is injected per frame as ``PFNoise`` (the parity tests feed the
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from ..config import GPMDMConfig, PFConfig
-from ..models import compressed, core
+from ..models import compressed, core, sparse
 from ..ops import gp_posterior as gpk
 from ..ops import kernels as K
 from ..ops import resample as rs
@@ -120,7 +122,7 @@ def pf_init_bank(post, y_class_offsets: np.ndarray,
                  generator: torch.Generator, pf_cfg: PFConfig,
                  n_banks: int) -> PFState:
     """A bank of ``n_banks`` independent filters of ``num_particles`` each
-    over ``post`` (exact or compressed), every particle sampled (with
+    over ``post`` (any posterior), every particle sampled (with
     replacement) from its class's training latents; each bank from its own
     draws."""
     Pb = pf_cfg.num_particles
@@ -218,15 +220,33 @@ def _kernel_fns(pf_cfg: PFConfig):
     return gpk.fused_x_posterior_classes, gpk.fused_obs_loglik, rs.resample_rank
 
 
+def _effective_quad_precision(pf_cfg: PFConfig, post):
+    """The sparse posterior's variance path, as the JAX package chooses it:
+    None (the per-frame triangular solves) when ``quad_precision`` is
+    'trisolve', or unset on a sparse model's own posterior; otherwise a
+    precision name (the hoisted inverses): the one set, or 'high' when it
+    is unset on a distilled posterior (the JAX package measured that path
+    faster and more accurate on distillations, while the hourlong sparse
+    model lost guard accuracy on it).  The port's products are all IEEE
+    fp32, so the name picks the algorithm only."""
+    if pf_cfg.quad_precision is None and post.distilled:
+        return "high"
+    return None if pf_cfg.quad_precision in (None, "trisolve") else pf_cfg.quad_precision
+
+
 def _dynamics(post, params, xin, cfg: GPMDMConfig, pf_cfg: PFConfig):
     """Every class's dynamics posterior at every particle: means and
     per-dimension variances (C, P, d).  Exact: K1, one launch for all
     classes (n_valid = n_max disables its row mask: the precompute's zero
     padding of Axc / Kxc_inv annihilates the padded star-kernel rows),
     the common variance not clamped.  Compressed: its products, the
-    common variance clamped at 1e-9."""
+    common variance clamped at 1e-9.  Sparse: its products or triangular
+    solves, clamped at 1e-12."""
     if isinstance(post, compressed.CompressedPosterior):
         return compressed.predict_x_all_classes(post, params, xin, cfg)
+    if isinstance(post, sparse.SparsePosterior):
+        return sparse.predict_x_all_classes(
+            post, params, xin, cfg, quad_precision=_effective_quad_precision(pf_cfg, post))
     x_posterior = _kernel_fns(pf_cfg)[0]
     diag_star = K.x_diag_kernel(
         xin, params.x_log_lin_coeff, params.x_log_sigma_n, cfg.sigma_n_num_X, False
@@ -242,11 +262,17 @@ def _observation_log_lik(post, params, x_new, z, cfg: GPMDMConfig, pf_cfg: PFCon
     """(P,) log-likelihood of each particle against its own bank's
     observation, ``z`` (B, D).  Exact: K2 returns the variance quad and
     the weighted residual, the log-pdf is elementwise from there.
-    Compressed: its predictions, then the diagonal-Gaussian log-pdf."""
+    Compressed and sparse: their predictions, then the diagonal-Gaussian
+    log-pdf."""
     coeff = 1.0 if pf_cfg.compat_double_logdet else 0.5
-    if isinstance(post, compressed.CompressedPosterior):
-        mean_y, var_y = compressed.predict_y(post, params, x_new, cfg,
-                                             with_noise=pf_cfg.obs_noise_in_weights)
+    if not isinstance(post, core.Posterior):
+        if isinstance(post, sparse.SparsePosterior):
+            mean_y, var_y = sparse.predict_y(
+                post, params, x_new, cfg, with_noise=pf_cfg.obs_noise_in_weights,
+                quad_precision=_effective_quad_precision(pf_cfg, post))
+        else:
+            mean_y, var_y = compressed.predict_y(post, params, x_new, cfg,
+                                                 with_noise=pf_cfg.obs_noise_in_weights)
         var_y = torch.clamp(var_y, min=1e-12)
         B, D = z.shape
         resid = z[:, None, :] - mean_y.reshape(B, -1, D)
@@ -272,7 +298,8 @@ def pf_step_bank(states: PFState, z: torch.Tensor, post, params: core.GPMDMParam
                  generator: torch.Generator | None = None) -> tuple[PFState, PFOutputs]:
     """One update of B independent filters: (states, observations (B, D))
     -> (new states, readouts with a leading bank axis).  ``post`` is an
-    exact ``core.Posterior`` or a ``compressed.CompressedPosterior``.
+    exact ``core.Posterior``, a ``compressed.CompressedPosterior`` or a
+    ``sparse.SparsePosterior``.
 
     Counterpart of the JAX package's flat-bank step: the GP stages run on
     the flat (B * Pb, d) particle set as one filter would (exact: one
@@ -283,7 +310,8 @@ def pf_step_bank(states: PFState, z: torch.Tensor, post, params: core.GPMDMParam
     it the step draws from ``generator``.  Multinomial resampling always
     needs ``generator``.
     """
-    if not isinstance(post, (core.Posterior, compressed.CompressedPosterior)):
+    if not isinstance(post, (core.Posterior, compressed.CompressedPosterior,
+                             sparse.SparsePosterior)):
         raise TypeError(f"unknown posterior backend: {type(post)!r}")
     B, Pb, d = states.x.shape
     P = B * Pb
@@ -480,16 +508,20 @@ def resolve_posterior(gpmdm, posterior="auto"):
     ``posterior`` names for ``gpmdm``.
 
     - ``'auto'`` (the ``GPMDM_PF`` default): a guard-measured deployment
-      recommendation that the checkpoint carries wins ('compressed' with
-      its ranks, or 'exact'; 'sparsified' raises ``NotImplementedError``,
-      since the port has no sparsified posterior).  Without one, the
-      model's own exact posterior, swapped for
+      recommendation that the checkpoint carries wins: 'sparsified' with
+      its M, Mx and method (``gpmdm.sparsified_posterior``; a model that
+      deploys its own posterior cannot honour it and falls back with a
+      warning), 'compressed' with its ranks, or 'exact'.  Without one, the
+      model's own posterior; an exact model's is swapped for
       ``gpmdm.compressed_posterior()`` when Ny > ``AUTO_COMPRESS_N``,
       unless its rank is past the FLOP-parity bound
       (``AUTO_COMPRESS_MAX_Q_FRAC``; warns and deploys exact).  A rank in
       the flat-spectrum band warns and compresses.  The decision reads
-      the layout only, so a loaded checkpoint that lands on its persisted
-      compressed cache never builds the exact posterior.
+      the model's family and layout only, so a loaded checkpoint that
+      lands on a persisted cache never builds the exact posterior, and a
+      sparse model (``_deploys_core_posterior`` False) never builds a
+      compressed one: at hourlong's Ny = 108,000 that would be a float64
+      eigendecomposition of a 93 GB Gram.
     - ``'exact'`` or ``None``: the model's own posterior.
     - ``'compressed'``: ``gpmdm.compressed_posterior()``.
     - a posterior object: used as it is.
@@ -507,6 +539,10 @@ def resolve_posterior(gpmdm, posterior="auto"):
     rec = gpmdm._deploy_recommendation
     if rec:
         fam = rec.get("family")
+        if fam == "sparsified" and gpmdm._deploys_core_posterior:
+            return gpmdm.sparsified_posterior(
+                int(rec["M"]), n_inducing_x=None if rec.get("Mx") is None else int(rec["Mx"]),
+                method=rec.get("method", "stride"))
         if fam == "compressed":
             return gpmdm.compressed_posterior(rank_y=rec.get("rank_y"),
                                               rank_x=rec.get("rank_x"))
@@ -514,16 +550,16 @@ def resolve_posterior(gpmdm, posterior="auto"):
             gpmdm._require_posterior()
             return gpmdm.posterior
         if fam == "sparsified":
-            # deploying another posterior would serve something other than
-            # what the JAX package serves for this checkpoint
-            raise NotImplementedError(
-                "deploy recommendation 'sparsified' (a distilled SGPR "
-                "posterior) is not ported (ROADMAP A.3); pass "
-                "posterior='exact' or 'compressed' to choose another")
-        warnings.warn(f"ignoring unknown deploy recommendation {rec!r}; "
-                      "falling back to the size-threshold policy", stacklevel=3)
+            warnings.warn(
+                "deploy recommendation 'sparsified' requires an exact-family model "
+                f"(GPMDM.sparsified_posterior); {type(gpmdm).__name__} cannot honor it "
+                "— check for a checkpoint/model mismatch.  Falling back to the "
+                "size-threshold policy.", stacklevel=3)
+        else:
+            warnings.warn(f"ignoring unknown deploy recommendation {rec!r}; "
+                          "falling back to the size-threshold policy", stacklevel=3)
     N = gpmdm.layout.Ny
-    if N <= AUTO_COMPRESS_N:
+    if not gpmdm._deploys_core_posterior or N <= AUTO_COMPRESS_N:
         gpmdm._require_posterior()
         return gpmdm.posterior
     cp = gpmdm.compressed_posterior()
@@ -578,7 +614,8 @@ class GPMDM_PF:
 
     ``posterior`` picks the deployed posterior through
     :func:`resolve_posterior`: ``'auto'`` (default), ``'exact'`` or
-    ``None``, ``'compressed'``, or a posterior object.  A string stays
+    ``None`` (the model's own), ``'compressed'``, or a posterior object
+    (exact, compressed or sparse).  A string stays
     unpinned and is resolved again on every call, so a later
     ``train_adam`` is served at once; an object pins it."""
 

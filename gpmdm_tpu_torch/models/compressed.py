@@ -44,7 +44,7 @@ from ..config import GPMDMConfig
 from ..ops import kernels as K
 from ..ops import kernels_host as KH
 from ..ops.layout import DataLayout
-from .core import tensor_from_numpy
+from .core import host_f64, tensor_from_numpy
 
 
 @dataclasses.dataclass
@@ -113,10 +113,7 @@ def compress_host(params, Y: np.ndarray, cfg: GPMDMConfig, layout: DataLayout,
     the kept ranks; otherwise ``tol`` cuts the spectrum at
     ``(mu_i - s) / mu_i``.  Costs two eigendecompositions, O(N^3)."""
     def f64(name):
-        v = params[name] if isinstance(params, dict) else getattr(params, name)
-        if isinstance(v, torch.Tensor):
-            v = v.detach().cpu().numpy()
-        return KH.f64(v)
+        return host_f64(params, name)
 
     X = f64("X")
     Y64 = KH.f64(Y)

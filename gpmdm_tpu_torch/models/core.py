@@ -51,6 +51,16 @@ def tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.tensor(np.array(a, order="C"), device=device).to(dtype).contiguous()
 
 
+def host_f64(params, name: str) -> np.ndarray:
+    """Field ``name`` of ``params`` (a parameter dataclass of tensors, or a
+    dict of numpy arrays keyed by field name) as a float64 numpy array:
+    what the host precomputes factor."""
+    v = params[name] if isinstance(params, dict) else getattr(params, name)
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return KH.f64(v)
+
+
 @dataclasses.dataclass
 class GPMDMParams:
     """Trained state: log-space hyperparameters and the (Ny, d) latent matrix."""
@@ -293,10 +303,7 @@ def precompute_host(params, Y: np.ndarray, cfg: GPMDMConfig,
     numpy arrays keyed by field name (a checkpoint's float64 originals);
     either is widened to float64 first."""
     def f64(name):
-        v = params[name] if isinstance(params, dict) else getattr(params, name)
-        if isinstance(v, torch.Tensor):
-            v = v.detach().cpu().numpy()
-        return KH.f64(v)
+        return host_f64(params, name)
 
     X = f64("X")
     Y64 = KH.f64(Y)

@@ -10,9 +10,10 @@ the model's device (``'cuda'`` unless the caller passes ``device='cpu'``);
 training runs there, and every posterior refresh factors the trained
 parameters on the host in float64 (``core.precompute_host``).  A loaded
 checkpoint defers that factorization to the first use of ``posterior``,
-so a deployment served from the persisted compressed posterior
-(``compressed_posterior``, ``filter.particle_filter.resolve_posterior``)
-never builds the exact one.
+so a deployment served from a persisted compressed or sparsified
+posterior (``compressed_posterior``, ``sparsified_posterior``,
+``filter.particle_filter.resolve_posterior``) never builds the exact one.
+The sparse family, ``models.sparse_gpmdm.SparseGPMDM``, derives from it.
 """
 
 from __future__ import annotations
@@ -25,15 +26,17 @@ import torch
 from ..config import GPMDMConfig, TrainConfig
 from ..ops import kernels as K
 from ..ops.layout import DataLayout, build_layout, class_block_mask, xin_xout
-from . import core
+from . import core, sparse
 
 
-def params_from_numpy(arrays: dict, dtype: torch.dtype = torch.float32,
-                      device="cuda") -> core.GPMDMParams:
+def params_from_numpy(arrays: dict, dtype: torch.dtype = torch.float32, device="cuda"):
     """``GPMDMParams`` from numpy arrays keyed by field name: a checkpoint's
     ``param_*`` entries, or the JAX package's parameters converted with
-    ``np.asarray``.  ``train.trainer.AdamState.from_numpy`` and
-    ``to_numpy`` carry the Adam state the same way."""
+    ``np.asarray``; ``sparse.SparseParams`` when the arrays hold the
+    inducing inputs ``Zy`` and ``Zx``.  ``train.trainer.AdamState.from_numpy``
+    and ``to_numpy`` carry the Adam state the same way."""
+    if "Zy" in arrays:
+        return sparse.SparseParams.from_numpy(arrays, dtype, device)
     return core.GPMDMParams(**{f: core.tensor_from_numpy(arrays[f], dtype, device)
                                for f in core.PARAM_FIELDS})
 
@@ -41,6 +44,12 @@ def params_from_numpy(arrays: dict, dtype: torch.dtype = torch.float32,
 class GPMDM:
     """Gaussian Process Multi-Dynamical Model: one observation GP shared by
     all classes and one dynamics GP per class, trained jointly by MAP."""
+
+    #: The model's own posterior is the exact ``core.Posterior``, which the
+    #: deployment policy may swap for a compressed or sparsified one
+    #: (``filter.particle_filter.resolve_posterior``); a family that deploys
+    #: its own posterior sets it False.
+    _deploys_core_posterior = True
 
     def __init__(
         self,
@@ -112,6 +121,7 @@ class GPMDM:
         self.params: Optional[core.GPMDMParams] = None
         self.posterior = None
         self._compressed_cache: dict = {}
+        self._sparsified_cache: dict = {}
         self._opt_state = None
         self._training_mode = "all"
         # a guard-measured deployment verdict ({'family': ...}) and the guard
@@ -273,10 +283,12 @@ class GPMDM:
         the caller already holds them in float64, else ``self.params``
         copied to the host) factored in float64 on the host and deployed in
         the model dtype on the model's device; with ``lazy``, at the
-        posterior's first use.  A refresh empties the compressed cache and
-        drops the deployment verdict, both made from the old parameters."""
+        posterior's first use.  A refresh empties the compressed and
+        sparsified caches and drops the deployment verdict, all made from
+        the old parameters."""
         self._require_init()
         self._compressed_cache = {}
+        self._sparsified_cache = {}
         self._deploy_recommendation = None
         if lazy:
             self._posterior = None
@@ -309,6 +321,34 @@ class GPMDM:
                 hp if hp is not None else self.params, self.get_Y(), self.config,
                 self.layout, rank_y=rank_y, rank_x=rank_x, tol=tol, device=self.device)
         return self._compressed_cache[key]
+
+    def sparsified_posterior(self, n_inducing_y: int = 128,
+                             n_inducing_x: int | None = None, method: str = "stride"):
+        """A post-hoc SGPR distillation of this trained exact model
+        (``models.sparse.distill_host``): the filter's star kernel drops from
+        (Ny, P) to (M, P) a frame and the variance to O(M^2 P), while mean
+        and variance both become M-rank approximations (an accuracy guard
+        arbitrates).  Pass it as ``GPMDM_PF(..., posterior=...)``.  Cached
+        per ``(n_inducing_y, n_inducing_x)``, with ``method`` appended to
+        the key when it is not ``'stride'``, until the next posterior
+        refresh, and persisted by :meth:`save`.  While a load has deferred
+        the exact build, the load's float64 parameters are used."""
+        self._require_init()
+        if not self._deploys_core_posterior:
+            raise TypeError(
+                f"{type(self).__name__} deploys its own posterior family; "
+                "post-hoc distillation applies to exact-trained models "
+                "(re-train with SparseGPMDM to choose M at training time)")
+        key = (int(n_inducing_y), None if n_inducing_x is None else int(n_inducing_x))
+        if method != "stride":
+            key = key + (str(method),)
+        if key not in self._sparsified_cache:
+            hp = self._lazy_host_params if self._posterior_pending else None
+            self._sparsified_cache[key] = sparse.distill_host(
+                hp if hp is not None else self.params, self.get_Y(), self.config,
+                self.layout, n_inducing_y=n_inducing_y, n_inducing_x=n_inducing_x,
+                method=method, device=self.device)
+        return self._sparsified_cache[key]
 
     # ------------------------------------------------------------- training
 

@@ -1,7 +1,8 @@
 """Host-side (numpy, float64) versions of the GP kernels in ops/kernels.py.
 
-``models.core.precompute_host`` factors the trained Gram matrices once in
-f64 on the host with these and deploys the results in the model dtype.
+``models.core.precompute_host`` and ``models.sparse.precompute_host``
+factor the trained Gram matrices once in f64 on the host with these and
+deploy the results in the model dtype.
 A numpy copy of ``gpmdm_tpu/ops/kernels_host.py``: the same formulas, so
 both packages build bit-identical posteriors from one checkpoint.
 """
@@ -33,3 +34,20 @@ def x_kernel(A: np.ndarray, B: np.ndarray, lengthscales: np.ndarray,
     """Dynamics kernel RBF + linear, no noise (ops/kernels.x_kernel)."""
     return rbf(A, B, lengthscales) + linear(A, B, lin_w2)
 
+
+
+def class_xin_xout(X: np.ndarray, layout, cfg, pads: dict):
+    """Padded per-class (Xin_c, Xout_c, mask) from the latent matrix, with
+    ``pads`` from ``ops.layout.padded_class_indices``: the dynamics inputs
+    and targets of each class, zero past its count (``models.sparse``
+    builds its inducing inputs and per-class factors from them)."""
+    mask = pads["mask"]
+    x_t = X[pads["idx_in"]] * mask[:, :, None]
+    if cfg.dyn_back_step == 1:
+        Xin_c = x_t
+    else:
+        Xin_c = np.concatenate([x_t, X[pads["idx_prev"]] * mask[:, :, None]], axis=2)
+    Xout_c = X[pads["idx_out"]] * mask[:, :, None]
+    if cfg.dyn_target == "delta":
+        Xout_c = Xout_c - x_t
+    return Xin_c, Xout_c, mask

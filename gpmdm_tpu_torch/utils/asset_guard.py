@@ -9,7 +9,9 @@ asset was trained on, streamed through
 :func:`gpmdm_tpu_torch.utils.metrics.evaluate_pf_banked`.
 The same trials and the same fingerprint as the JAX package's, so a score
 on the card sits beside the receipt a checkpoint carries
-(``model._guard_receipt``).
+(``model._guard_receipt``).  It takes either family: the ``'sparse'``
+shapes are the ``SparseGPMDM`` assets' (``hourlong``, whose receipt also
+stands for ``hourlongh``, and ``sparse10240``).
 """
 
 from __future__ import annotations
@@ -72,9 +74,10 @@ def guard_report(model, config_name: str, particles: int = 500, posterior=None,
 
 
 def params_fingerprint(params) -> str:
-    """sha256 over the parameters in field order (name, shape, bytes): the
-    JAX package's fingerprint, which binds a guard receipt to the exact
-    parameters it was measured on."""
+    """sha256 over the parameters in field order (name, shape, bytes) of a
+    ``GPMDMParams`` or a ``SparseParams``: the JAX package's fingerprint,
+    which binds a guard receipt to the exact parameters it was measured
+    on."""
     h = hashlib.sha256()
     for f in dataclasses.fields(params):
         leaf = getattr(params, f.name).detach().cpu().numpy()

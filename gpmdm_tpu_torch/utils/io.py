@@ -2,19 +2,24 @@
 ways, and the reference's torch pickle.
 
 A checkpoint holds the config and the constructor's initial
-hyperparameters as JSON (``meta_json``), the trained parameters
-(``param_<field>``), the raw observation sequences (``obs_<class>_<i>``)
-and the Adam state (``opt_<i>``, optax's leaf order: count, then the first
+hyperparameters as JSON (``meta_json``), the model class (``'GPMDM'`` or
+``'SparseGPMDM'``, with ``n_inducing_*``), the trained parameters
+(``param_<field>``), the raw observation sequences (``obs_<class>_<i>``),
+the Adam state (``opt_<i>``, optax's leaf order: count, then the first
 and second moments in ``PARAM_FIELDS`` order), the compressed-posterior
 cache (``comp_<j>_<field>``, keyed by ``compressed_keys`` and
-``compressed_entry_idx`` in the meta), the deployment recommendation and
-the guard receipt.  Either package reads what the other writes, and
-training resumes from the saved Adam state.  This reader takes the exact
-``GPMDM`` family only.  Loading defers the exact posterior's float64
-factorization to its first use, so a deployment served from the persisted
-compressed cache never builds it.  The sparsified caches
-(``sparsified_*``) are neither read nor written, and an L-BFGS state is
-not read.
+``compressed_entry_idx`` in the meta), the sparsified cache
+(``sparsified_<j>_<field>``, keyed by ``sparsified_keys`` and
+``sparsified_entry_idx``), a sparse model's own posterior
+(``post_<field>``, with ``posterior_class``), the deployment
+recommendation and the guard receipt.  Either package reads what the
+other writes, and training of the exact family resumes from the saved
+Adam state.  Loading defers the exact posterior's float64 factorization
+to its first use, so a deployment served from a persisted cache never
+builds it; a sparse model's posterior comes from its ``post_*`` arrays,
+or from an O(N M^2) host build.  An L-BFGS state, and any optimizer
+state of a sparse model, is not read: the port trains neither yet.  The
+back-constrained family (``BCGPMDM``) is not read.
 """
 
 from __future__ import annotations
@@ -28,27 +33,65 @@ import numpy as np
 import torch
 
 from ..config import GPMDMConfig
-from ..models import core
+from ..models import core, sparse
 from ..models.compressed import CompressedPosterior
-from ..models.gpmdm import GPMDM
+from ..models.gpmdm import GPMDM, params_from_numpy
+from ..models.sparse_gpmdm import SparseGPMDM
 from ..train.trainer import AdamState
 
 FORMAT_VERSION = 1
 
+_CLASSES = {"GPMDM": GPMDM, "SparseGPMDM": SparseGPMDM}
+_COMP_FIELDS = [f.name for f in dataclasses.fields(CompressedPosterior)]
+
+
+def _to_numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _write_cache(arrays: dict, meta: dict, cache: dict, prefix: str, name: str,
+                 fields) -> None:
+    """A posterior cache as ``<prefix>_<j>_<field>`` arrays and the meta's
+    ``<name>_keys`` / ``<name>_entry_idx`` lists: an entry cached under
+    several keys is written once."""
+    keys, entry_idx, seen = [], [], {}
+    for key, post in cache.items():
+        keys.append(list(key))
+        j = seen.get(id(post))
+        if j is None:
+            j = seen[id(post)] = len(seen)
+            for f in fields:
+                arrays[f"{prefix}_{j}_{f}"] = _to_numpy(getattr(post, f))
+        entry_idx.append(j)
+    if keys:
+        meta[f"{name}_keys"] = keys
+        meta[f"{name}_entry_idx"] = entry_idx
+
+
+def _read_cache(data, meta: dict, prefix: str, name: str, fields, build) -> dict:
+    """The cache written by :func:`_write_cache`, each entry made once by
+    ``build`` from its arrays keyed by field and shared by the keys that
+    map to it (1:1 in checkpoints written before aliases)."""
+    keys = meta.get(f"{name}_keys") or []
+    idx = meta.get(f"{name}_entry_idx", list(range(len(keys))))
+    built = {j: build({f: data[f"{prefix}_{j}_{f}"] for f in fields}) for j in set(idx)}
+    return {tuple(k): built[j] for k, j in zip(keys, idx)}
+
 
 def save_model(model: GPMDM, file_path) -> None:
-    """Write ``model`` as a format-1 checkpoint at exactly ``file_path``,
-    with its compressed-posterior cache (an entry cached under several
-    keys written once; an 'auto'-rank entry past the q = N/2 FLOP-parity
-    bound, which ``resolve_posterior('auto')`` would not deploy, left
-    out), its deployment recommendation and its guard receipt.  No
-    sparsified cache is written: the port builds none.
+    """Write ``model`` (a ``GPMDM`` or ``SparseGPMDM``) as a format-1
+    checkpoint at exactly ``file_path``, with its compressed-posterior
+    cache (an 'auto'-rank entry past the q = N/2 FLOP-parity bound, which
+    ``resolve_posterior('auto')`` would not deploy, left out), its
+    sparsified cache, a sparse model's own posterior, its deployment
+    recommendation and its guard receipt; an entry cached under several
+    keys is written once.
     """
     file_path = Path(file_path)
     meta = {
         "format_version": FORMAT_VERSION,
         "config": model.config.to_dict(),
-        "model_class": "GPMDM",
+        "model_class": type(model).__name__,
         "n_sequences_per_class": [len(s) for s in model.class_aware_observations_list],
         "initialized": model.params is not None,
         "has_opt_state": model._opt_state is not None,
@@ -56,33 +99,33 @@ def save_model(model: GPMDM, file_path) -> None:
         "init_hypers": {k: (v.tolist() if isinstance(v, np.ndarray) else v)
                         for k, v in model._init_hypers.items()},
     }
+    if isinstance(model, SparseGPMDM):
+        meta["n_inducing_y"] = model.n_inducing_y
+        meta["n_inducing_x"] = model.n_inducing_x
     arrays = {f"obs_{c}_{i}": np.asarray(s)
               for c, seqs in enumerate(model.class_aware_observations_list)
               for i, s in enumerate(seqs)}
     if model.params is not None:
-        meta["param_fields"] = list(core.PARAM_FIELDS)
-        for f in core.PARAM_FIELDS:
-            arrays[f"param_{f}"] = getattr(model.params, f).detach().cpu().numpy()
+        meta["param_fields"] = [f.name for f in dataclasses.fields(model.params)]
+        for f in meta["param_fields"]:
+            arrays[f"param_{f}"] = _to_numpy(getattr(model.params, f))
     if model._opt_state is not None:
         leaves = model._opt_state.to_numpy()
         meta["n_opt_leaves"] = len(leaves)
         arrays.update({f"opt_{i}": leaf for i, leaf in enumerate(leaves)})
     from ..filter.particle_filter import AUTO_COMPRESS_MAX_Q_FRAC
 
-    keys, entry_idx, seen = [], [], {}
-    for key, post in model._compressed_cache.items():
-        if key[0] is None and post.rank_y > AUTO_COMPRESS_MAX_Q_FRAC * post.Uy.shape[0]:
-            continue
-        keys.append(list(key))
-        j = seen.get(id(post))
-        if j is None:
-            j = seen[id(post)] = len(seen)
-            for f in dataclasses.fields(post):
-                arrays[f"comp_{j}_{f.name}"] = getattr(post, f.name).detach().cpu().numpy()
-        entry_idx.append(j)
-    if keys:
-        meta["compressed_keys"] = keys
-        meta["compressed_entry_idx"] = entry_idx
+    comp = {key: post for key, post in model._compressed_cache.items()
+            if not (key[0] is None
+                    and post.rank_y > AUTO_COMPRESS_MAX_Q_FRAC * post.Uy.shape[0])}
+    _write_cache(arrays, meta, comp, "comp", "compressed", _COMP_FIELDS)
+    _write_cache(arrays, meta, model._sparsified_cache, "sparsified", "sparsified",
+                 sparse.POSTERIOR_FIELDS)
+    built = model._posterior
+    if isinstance(built, sparse.SparsePosterior):
+        meta["posterior_class"] = "SparsePosterior"
+        for f in sparse.POSTERIOR_FIELDS:
+            arrays[f"post_{f}"] = _to_numpy(getattr(built, f))
     if model._deploy_recommendation:
         meta["deploy_recommendation"] = model._deploy_recommendation
     if model._guard_receipt:
@@ -99,9 +142,11 @@ def save_model(model: GPMDM, file_path) -> None:
 
 
 def load_model(file_path, device="cuda") -> GPMDM:
-    """Load an exact GPMDM checkpoint onto ``device``, with its Adam state
-    when it has one and its compressed-posterior cache; the exact
-    posterior is built at its first use."""
+    """Load a ``GPMDM`` or ``SparseGPMDM`` checkpoint onto ``device``: an
+    exact model with its Adam state when it has one and the exact
+    posterior built at its first use, a sparse model with its persisted
+    posterior (or one built on the host now), and either with its
+    compressed and sparsified caches."""
     file_path = Path(file_path)
     with np.load(file_path) as data:
         meta = json.loads(bytes(data["meta_json"]).decode("utf-8"))
@@ -111,38 +156,53 @@ def load_model(file_path, device="cuda") -> GPMDM:
                 f"this reader takes {FORMAT_VERSION}"
             )
         model_class = meta.get("model_class", "GPMDM")
-        if model_class != "GPMDM":
+        if model_class not in _CLASSES:
             raise ValueError(
-                f"{file_path}: model_class {model_class!r} is not ported; "
-                "this reader takes the exact 'GPMDM' family only"
+                f"{file_path}: model_class {model_class!r} is not ported "
+                "(the back-constrained 'BCGPMDM' is ROADMAP A.4)"
             )
         if not meta["initialized"]:
             raise ValueError(f"{file_path}: checkpoint holds an untrained model")
         cfg = GPMDMConfig.from_dict(meta["config"])
-        model = GPMDM.from_config(cfg, device=device, init_hypers=meta.get("init_hypers"))
+        model = _CLASSES[model_class].from_config(cfg, device=device,
+                                                  init_hypers=meta.get("init_hypers"))
+        fields = meta.get("param_fields", list(core.PARAM_FIELDS))
+        want = sparse.SPARSE_PARAM_FIELDS if model_class == "SparseGPMDM" else core.PARAM_FIELDS
+        if tuple(fields) != want:
+            raise ValueError(f"{file_path}: unexpected parameter fields {fields} "
+                             f"for {model_class!r}")
+        if isinstance(model, SparseGPMDM):
+            model.n_inducing_y = int(meta["n_inducing_y"])
+            model.n_inducing_x = int(meta["n_inducing_x"])
         for c, n_seq in enumerate(meta["n_sequences_per_class"]):
             for i in range(n_seq):
                 model.add_data(data[f"obs_{c}_{i}"], c)
-        fields = meta.get("param_fields", list(core.PARAM_FIELDS))
-        if tuple(fields) != core.PARAM_FIELDS:
-            raise ValueError(f"{file_path}: unexpected parameter fields {fields}")
         host_params = {f: np.asarray(data[f"param_{f}"], dtype=np.float64) for f in fields}
         opt_leaves = None
-        if meta.get("has_opt_state") and meta.get("optimizer_name", "adam") == "adam":
+        if (meta.get("has_opt_state") and meta.get("optimizer_name", "adam") == "adam"
+                and model_class == "GPMDM"):
             opt_leaves = [data[f"opt_{i}"] for i in range(meta["n_opt_leaves"])]
-        comp_keys = meta.get("compressed_keys") or []
-        # entry j's arrays, shared by the keys that map to it (1:1 in
-        # checkpoints written before aliases)
-        comp_idx = meta.get("compressed_entry_idx", list(range(len(comp_keys))))
-        comp_arrays = {j: {f.name: data[f"comp_{j}_{f.name}"]
-                           for f in dataclasses.fields(CompressedPosterior)}
-                       for j in set(comp_idx)}
-    model.set_params(host_params, lazy=True)
-    # after the refresh, which empties the cache and drops the verdict:
-    # both were made from these parameters
-    built = {j: CompressedPosterior.from_numpy(a, model.dtype, model.device)
-             for j, a in comp_arrays.items()}
-    model._compressed_cache = {tuple(k): built[j] for k, j in zip(comp_keys, comp_idx)}
+        post_arrays = None
+        if meta.get("posterior_class") == "SparsePosterior":
+            post_arrays = {f: data[f"post_{f}"] for f in sparse.POSTERIOR_FIELDS}
+        comp = _read_cache(data, meta, "comp", "compressed", _COMP_FIELDS,
+                           lambda a: CompressedPosterior.from_numpy(a, model.dtype, model.device))
+        # the sparsified cache holds distillations of an exact model by
+        # construction
+        spc = _read_cache(data, meta, "sparsified", "sparsified", sparse.POSTERIOR_FIELDS,
+                          lambda a: sparse.SparsePosterior.from_numpy(
+                              a, model.dtype, model.device, distilled=True))
+    if post_arrays is None:
+        model.set_params(host_params, lazy=True)
+    else:
+        # the persisted factors: no O(N M^2) host build
+        model.layout = model._build_layout()
+        model.params = params_from_numpy(host_params, model.dtype, model.device)
+        model.posterior = sparse.SparsePosterior.from_numpy(post_arrays, model.dtype,
+                                                            model.device)
+    # after the refresh, which empties the caches and drops the verdict:
+    # all were made from these parameters
+    model._compressed_cache, model._sparsified_cache = comp, spc
     model._deploy_recommendation = meta.get("deploy_recommendation") or None
     model._guard_receipt = meta.get("guard_receipt") or None
     if opt_leaves is not None:

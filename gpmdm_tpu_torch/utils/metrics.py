@@ -168,8 +168,10 @@ def evaluate_pf_banked(
     banks draw from one generator seeded with ``seed``).
 
     An explicit ``num_particles`` wins over ``config``'s.  ``posterior``
-    overrides the model's own: an exact ``models.core.Posterior`` or a
-    ``models.compressed.CompressedPosterior`` (``model.compressed_posterior()``).
+    overrides the model's own: an exact ``models.core.Posterior``, a
+    ``models.compressed.CompressedPosterior`` (``model.compressed_posterior()``)
+    or a ``models.sparse.SparsePosterior`` (``model.sparsified_posterior()``,
+    or a ``SparseGPMDM``'s own).
     ``None`` means the model's OWN posterior, not the deployment policy:
     pass ``filter.particle_filter.resolve_posterior(model, 'auto')`` for that.
     ``max_banks`` caps the filters per call: chunks are padded to exactly

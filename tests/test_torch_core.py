@@ -127,14 +127,19 @@ def test_load_model_matches_jax(asset):
 
 
 def test_load_model_rejects_other_families(tmp_path):
+    """The back-constrained family is not ported: its checkpoint is
+    refused by name; a checkpoint whose parameters do not fit the family
+    it names is refused too."""
     src = np.load(ASSETS / "bench_model.npz")
     arrays = {k: src[k] for k in src.files}
     meta = json.loads(bytes(arrays["meta_json"]).decode())
-    meta["model_class"] = "SparseGPMDM"
-    arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
-    np.savez(tmp_path / "sparse.npz", **arrays)
-    with pytest.raises(ValueError, match="SparseGPMDM"):
-        load_model(tmp_path / "sparse.npz", device="cpu")
+    for family, match in (("BCGPMDM", "'BCGPMDM' is not ported"),
+                          ("SparseGPMDM", "unexpected parameter fields")):
+        meta["model_class"] = family
+        arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+        np.savez(tmp_path / "other.npz", **arrays)
+        with pytest.raises(ValueError, match=match):
+            load_model(tmp_path / "other.npz", device="cpu")
 
 
 @pytest.mark.parametrize("seed,kw", [(0, {}), (7, {"n_classes": 3, "D": 9, "seq_len": 25}),

@@ -378,3 +378,48 @@ def test_cuda_compressed_predictions_match_f64(asset):
             err = (gg.cpu().double() - w).abs().max().item()
             ref = (c32.double() - w).abs().max().item()
             assert err <= 4 * ref + 1e-6 * w.abs().max().item(), (name, label, err, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quad", [None, "high"], ids=["trisolve", "hoisted"])
+@pytest.mark.parametrize("asset", ["bench_model_hourlong.npz", "bench_model_c8n5120.npz"])
+def test_cuda_sparse_predictions_match_f64(asset, quad):
+    """The sparse posterior's predictions on the card (cuBLAS fp32
+    products and triangular solves, TF32 off) on both variance paths,
+    against the same posterior and points in float64 on the CPU, to the
+    rule above: 4 x the CPU's fp32 error + 1e-6 x the largest magnitude.
+    hourlong's own posterior (Ny = 108,000, M = 128) and c8n5120's
+    persisted distillation (M = 384, 8 classes), as 'auto' serves them,
+    at their initial clouds of 4,096."""
+    from pathlib import Path
+
+    from gpmdm_tpu_torch.filter import particle_filter as pf
+    from gpmdm_tpu_torch.models import sparse
+    from gpmdm_tpu_torch.utils.io import load_model
+
+    dev = _cuda_or_skip()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    m = load_model(Path(__file__).resolve().parents[1] / "bench_assets" / asset, device=dev)
+    sp = pf.resolve_posterior(m, "auto")
+    assert isinstance(sp, sparse.SparsePosterior)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = pf.pf_init(sp, m.layout.y_class_offsets, g, pf.PFConfig(num_particles=4096)).x
+
+    def post_as(dtype, device):
+        return sparse.SparsePosterior(**{f: getattr(sp, f).to(device, dtype)
+                                         for f in sparse.POSTERIOR_FIELDS},
+                                      distilled=sp.distilled)
+
+    params32 = type(m.params)(**{k: v.cpu() for k, v in vars(m.params).items()})
+    cases = ((sp, m.params, x), (post_as(torch.float32, "cpu"), params32, x.cpu()),
+             (post_as(torch.float64, "cpu"), _f64(m.params), x.cpu().double()))
+    for name in ("predict_y", "predict_x_all_classes"):
+        fn = getattr(sparse, name)
+        got, cpu32, want = (fn(p, prm, xx, m.config, with_noise=True, quad_precision=quad)
+                            for p, prm, xx in cases)
+        torch.cuda.synchronize()
+        for label, gg, c32, w in zip(("mean", "var"), got, cpu32, want):
+            assert torch.isfinite(gg).all(), (name, label)
+            err = (gg.cpu().double() - w).abs().max().item()
+            ref = (c32.double() - w).abs().max().item()
+            assert err <= 4 * ref + 1e-6 * w.abs().max().item(), (name, label, err, ref)

@@ -172,17 +172,17 @@ def test_recommendation_families_match_jax(headline_pair, rec):
 
 
 def test_sparsified_recommendation_raises(monkeypatch):
-    """The c8 assets recommend a sparsified posterior, which is not
-    ported: 'auto' raises, naming the roadmap entry, and never deploys
-    another posterior in its place; an explicit choice still serves."""
+    """The c8 assets recommend a sparsified posterior: 'auto' serves the
+    persisted distillation, as the JAX package does, with no exact build
+    and no distillation (it raised while the sparse family was not
+    ported); an explicit choice still serves."""
     _no_exact_build(monkeypatch)
     for name in ("bench_model_c8.npz", "bench_model_c8n5120.npz"):
         tm = load_model(ASSETS / name, device="cpu")
         assert tm._deploy_recommendation["family"] == "sparsified"
-        with pytest.raises(NotImplementedError, match="A.3"):
-            tpf.resolve_posterior(tm, "auto")
-        with pytest.raises(NotImplementedError, match="A.3"):
-            GPMDM_PF(tm, np.eye(tm.n_classes), 16)
+        got = tpf.resolve_posterior(tm, "auto")
+        assert got is next(iter(tm._sparsified_cache.values())) and got.distilled
+        assert GPMDM_PF(tm, np.eye(tm.n_classes), 16)._post is got
     cp = tpf.resolve_posterior(tm, "compressed")
     assert (cp.rank_y, cp.rank_x) == (1149, 331) and tm._posterior is None
 
@@ -369,11 +369,14 @@ def test_guard_trials_match_jax(name):
 
 
 @pytest.mark.parametrize("fname", ["bench_model.npz", "bench_model_n2048.npz",
-                                   "bench_model_n5120.npz", "bench_model_c8.npz"])
+                                   "bench_model_n5120.npz", "bench_model_c8.npz",
+                                   "bench_model_c8n5120.npz", "bench_model_sparse10240.npz",
+                                   "bench_model_hourlong.npz", "bench_model_hourlongh.npz"])
 def test_params_fingerprint_matches_the_receipts(fname):
     """The port's fingerprint of a loaded asset is the JAX package's, the
-    one its receipt was stamped with."""
+    one its receipt was stamped with, for either family (the sparse
+    assets' ``SparseParams`` in the JAX field order)."""
     tm = load_model(ASSETS / fname, device="cpu")
-    jm = JGPMDM.load(ASSETS / fname)
+    jm = JGPMDM.load(ASSETS / fname)  # the JAX reader picks the family
     fp = tguard.params_fingerprint(tm.params)
     assert fp == jguard.params_fingerprint(jm.params) == tm._guard_receipt["params_sha256"]
