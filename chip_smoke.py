@@ -145,6 +145,35 @@ Phases, each printing one JSON line on stdout:
 11. train_n2048 - the n2048 recipe of tools/train_bench_assets.py (16
              sequences of 64 frames a class, Ny = 2,048, f32): 20 Adam
              steps; steps/s and the non-finite count.
+12. train_sparse - BASELINE.md's hour-long configuration at full scale:
+             the 4 sequences of bench_model_hourlong.npz (2 classes x 2 x
+             27,000 frames, D = 35, Ny = 108,000) in a fresh SparseGPMDM
+             with the asset's config (f32, sigma_n frozen, M = 128 + 128),
+             init_X on the card, 30 Adam steps at lr 0.01, in memory only.
+             Fails unless all 30 losses are finite, the last is below the
+             first, and the first is within max(1e-3, 4 x the host's own
+             fp32-against-float64 gap) relative of the port's float64
+             sparse_nll at the same initialisation on the host CPU, both
+             as it is and with the fp32 objective's jitters (Kuu's 1e-4,
+             not float64's 1e-6, which alone moves the loss by ~5%).
+             Reports the first step's seconds, steps/s over the other 29,
+             peak GiB and load s; with --profile, launches and device ms
+             per step by kind and the busy share.
+13. train_sparse_resume - bench_model_hourlong.npz with its Adam state, 20
+             more steps: the count must read the stored count + 20, the
+             losses be finite and the last within 5% of the asset's loss at
+             its stored parameters (on the card).  The model then serves
+             bench.py:530-539's banked guard (12 trials x 600 frames, P =
+             10,000; K1 = K2 = 0, K3 = padded frames), reported beside
+             sparse_hourlong's guard, not gated.
+14. train_bc - the bench_model.npz recipe as a BCGPMDM (median
+             lengthscale), 300 Adam steps at lr 0.01: every loss finite,
+             the first within 1e-3 relative of the port's float64 bc_nll
+             on the host, map_y_to_x(get_Y()) equal to params.X within
+             1e-4 x its median magnitude; steps/s.  It then serves the
+             banked guard's 12 trials (P = 10,000, padded to 64 frames)
+             with exactly 64 launches of each of K1, K2 and K3; accuracy
+             reported, not gated.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -196,6 +225,12 @@ N2048_RECIPE = {"n_seqs": 16, "seq_len": 64, "steps": 20}
 TRAIN_LR = 0.01
 TRAIN_FIRST_RTOL = 1e-3  # first f32 loss against the float64 loss
 TRAIN_FINAL_RTOL = 0.05  # final loss against the committed asset's
+# the sparse family at BASELINE.md's hour-long scale: Adam steps from the
+# PCA init, and more steps resumed from the asset's stored Adam state
+SPARSE_TRAIN_STEPS, SPARSE_RESUME_STEPS = 30, 20
+# the fp32 loss's tolerance against float64 is at least this, or 4 x the
+# host's own fp32 gap where the cancellation in the trace term is larger
+SPARSE_FIRST_RTOL = 1e-3
 # Published fp32 (non-tensor-core) peak and memory rate by part, from
 # NVIDIA's data sheets; the SXM part is the H100 "80GB HBM3".
 PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "": (67e12, 3.35e12)}
@@ -374,11 +409,12 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
-    from gpmdm_tpu_torch import GPMDM, GPMDM_PF, PFConfig, TrainConfig
+    from gpmdm_tpu_torch import BCGPMDM, GPMDM, GPMDM_PF, PFConfig, SparseGPMDM, TrainConfig
     from gpmdm_tpu_torch.bench_kernels import (RANK_SHAPES, conditioned, conditioned_classes,
                                                dirichlet_counts, gemm_yardstick, time_ms)
     from gpmdm_tpu_torch.data import synthetic
     from gpmdm_tpu_torch.filter import particle_filter as pf
+    from gpmdm_tpu_torch.models import sparse as tsp
     from gpmdm_tpu_torch.models.compressed import CompressedPosterior
     from gpmdm_tpu_torch.ops import _build
     from gpmdm_tpu_torch.ops import gp_posterior as gpk
@@ -1032,6 +1068,7 @@ def main(argv) -> int:
                                          *ag.guard_trials("hourlong"), pfc, gated=True)
     emit({**entry, "receipt": m._guard_receipt, "min_frame_acc": GUARD_MIN_FRAME_ACC,
           "device": kind, "nvidia_smi": smi})
+    hourlong_guard = entry["banked_guard"]
     del m, post_s
 
     for name, fname, shape in (("sparse_hourlongh", "bench_model_hourlongh.npz", "hourlong"),
@@ -1118,15 +1155,15 @@ def main(argv) -> int:
         "sparsified_fleet", model, sp_head, q_seqs, q_labels, TRANSITIONS, fleet_q, gated=True)
     emit({**entry, "min_frame_acc": GUARD_MIN_FRAME_ACC, "device": kind, "nvidia_smi": smi})
 
-    def recipe_model(recipe, dtype="float32", device=dev):
+    def recipe_model(recipe, dtype="float32", device=dev, family=GPMDM):
         """A PCA-initialized model of the recipe (seed 0, the D of the bench
-        asset, d = 2, 2 classes, sigma_n inits 0.1), as the JAX package's
-        asset scripts build it."""
+        asset, d = 2, 2 classes, sigma_n inits 0.1) in ``family``, as the
+        JAX package's asset scripts build it."""
         tr, tl, _, _ = synthetic.make_dataset(
             n_classes=2, n_train_seqs=recipe["n_seqs"], n_test_seqs=1,
             seq_len=recipe["seq_len"], D=cfg.D, seed=0)
-        m = GPMDM(D=cfg.D, d=2, n_classes=2, dtype=dtype, y_sigma_n_init=0.1,
-                  x_sigma_n_init=0.1, device=device)
+        m = family(D=cfg.D, d=2, n_classes=2, dtype=dtype, y_sigma_n_init=0.1,
+                   x_sigma_n_init=0.1, device=device)
         for Y, c in zip(tr, tl):
             m.add_data(Y, c)
         m.init_X()
@@ -1147,8 +1184,9 @@ def main(argv) -> int:
         (the model itself is left as it is)."""
         Yd = torch.as_tensor(m.get_Y(), device=dev)
         tc = TrainConfig(num_steps=steps, lr=TRAIN_LR)
-        return profile(lambda: trainer.train_adam(m.params, Yd, m.config, m.layout, tc,
-                                                  opt_state=m._opt_state), steps, "step")
+        return profile(lambda: trainer.train_adam(m._params_for_save(), Yd, m.config, m.layout,
+                                                  tc, opt_state=m._opt_state,
+                                                  objective=m._objective), steps, "step")
 
     _phase[0] = "train"
     loss64 = recipe_model(TRAIN_RECIPE, "float64", "cpu").gpdm_loss()
@@ -1202,12 +1240,157 @@ def main(argv) -> int:
     del big
     torch.cuda.empty_cache()
 
+    _phase[0] = "train_sparse"
+    check_precision("train_sparse")
+    t_phase = time.perf_counter()
+    hourlong_path = os.path.join(ROOT, "bench_assets", "bench_model_hourlong.npz")
+    t0 = time.perf_counter()
+    src = GPMDM.load(hourlong_path, device=dev)
+    load_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    sm = SparseGPMDM.from_config(src.config, device=dev, init_hypers=src._init_hypers)
+    sm.n_inducing_y, sm.n_inducing_x = src.n_inducing_y, src.n_inducing_x
+    for c, seqs in enumerate(src.class_aware_observations_list):
+        for Y in seqs:
+            sm.add_data(Y, c)
+    del src
+    t0 = time.perf_counter()
+    sm.init_X()
+    init_s = time.perf_counter() - t0
+    # the same initialisation on the host CPU: the port's sparse_nll in
+    # float64, in float64 with the fp32 config (the fp32 objective's
+    # jitters: Kuu's 1e-4 against 1e-6), and in fp32
+    host = {}
+    cfg64 = sm.config.replace(dtype="float64")
+    for label, tdt, hcfg in (("f64", torch.float64, cfg64),
+                             ("f64_of_f32_objective", torch.float64, sm.config),
+                             ("f32", torch.float32, sm.config)):
+        hp = tsp.SparseParams(**{f: getattr(sm.params, f).detach().cpu().to(tdt)
+                                 for f in tsp.SPARSE_PARAM_FIELDS})
+        with torch.no_grad():
+            host[label] = float(tsp.sparse_nll(
+                hp, torch.as_tensor(sm.get_Y()).to(tdt), hcfg, sm.layout))
+    losses, first_s, steps_per_s = train(sm, SPARSE_TRAIN_STEPS)
+    check_precision("train_sparse")
+    nonfinite = int(np.sum(~np.isfinite(losses)))
+    # the card's first loss against each float64 reading, within 1e-3 or 4x
+    # the host's own fp32 gap to it, whichever is larger
+    first = {}
+    for ref in ("f64", "f64_of_f32_objective"):
+        host_rel = abs(host["f32"] - host[ref]) / abs(host[ref])
+        first[ref] = {"host": host[ref], "host_f32_rel": host_rel,
+                      "rel": abs(losses[0] - host[ref]) / abs(host[ref]),
+                      "tol": max(SPARSE_FIRST_RTOL, 4 * host_rel)}
+    emit({"phase": "train_sparse", "Ny": sm.layout.Ny, "D": sm.D, "d": sm.d,
+          "classes": sm.n_classes, "My": sm.n_inducing_y, "Mx": sm.n_inducing_x,
+          "dtype": sm.config.dtype, "steps": len(losses), "lr": TRAIN_LR, "load_s": load_s,
+          "init_s": init_s, "first_step_s": first_s, "steps_per_s": steps_per_s,
+          "peak_gib": peak_gib(), "first_loss": float(losses[0]),
+          "first_loss_f32_host": host["f32"], "first_vs": first,
+          "final_loss": float(losses[-1]), "nonfinite": nonfinite,
+          "seconds": time.perf_counter() - t_phase, "device": kind, "nvidia_smi": smi})
+    if len(losses) != SPARSE_TRAIN_STEPS or nonfinite:
+        raise AssertionError(f"train_sparse: {nonfinite} non-finite of {len(losses)} losses")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_sparse: last loss {losses[-1]} not below the first "
+                             f"{losses[0]}")
+    for ref, o in first.items():
+        if not o["rel"] <= o["tol"]:
+            raise AssertionError(f"train_sparse: first loss {losses[0]} vs host {ref} "
+                                 f"{o['host']}: {o['rel']:.2e} > {o['tol']:.2e}")
+    if "--profile" in argv:
+        emit({"phase": "profile", "path": "train_sparse", "Ny": sm.layout.Ny,
+              **profile_steps(sm, 5)})
+    del sm
+    torch.cuda.empty_cache()
+
+    _phase[0] = "train_sparse_resume"
+    check_precision("train_sparse_resume")
+    t_phase = time.perf_counter()
+    rm = GPMDM.load(hourlong_path, device=dev)
+    stored_count = int(rm._opt_state.count)
+    asset_sparse_loss = rm.gpdm_loss()
+    torch.cuda.reset_peak_memory_stats()
+    lg = MetricLogger(stream=None)
+    losses = np.asarray(rm.train_adam(SPARSE_RESUME_STEPS, lr=TRAIN_LR, logger=lg))
+    count = int(rm._opt_state.count)
+    nonfinite = int(np.sum(~np.isfinite(losses)))
+    final_rel = abs(losses[-1] - asset_sparse_loss) / abs(asset_sparse_loss)
+    entry = {"phase": "train_sparse_resume", "Ny": rm.layout.Ny, "steps": len(losses),
+             "stored_count": stored_count, "count": count, "steps_per_s": lg.last("steps_per_sec"),
+             "peak_gib": peak_gib(), "first_loss": float(losses[0]),
+             "final_loss": float(losses[-1]), "asset_loss": asset_sparse_loss,
+             "final_rel": final_rel, "nonfinite": nonfinite}
+    if count != stored_count + SPARSE_RESUME_STEPS or nonfinite:
+        emit(entry)
+        raise AssertionError(f"train_sparse_resume: Adam count {count} (stored "
+                             f"{stored_count}), {nonfinite} non-finite losses")
+    if not final_rel <= TRAIN_FINAL_RTOL:
+        emit(entry)
+        raise AssertionError(f"train_sparse_resume: final loss {losses[-1]} vs the asset's "
+                             f"{asset_sparse_loss}: {final_rel:.3f} > {TRAIN_FINAL_RTOL}")
+    entry["banked_guard"] = sparse_guard("train_sparse_resume", rm, rm.posterior,
+                                         *ag.guard_trials("hourlong"), pfc, gated=False)
+    emit({**entry, "sparse_hourlong_frame_acc": hourlong_guard["frame_acc"],
+          "sparse_hourlong_frame_f1": hourlong_guard["frame_f1"],
+          "seconds": time.perf_counter() - t_phase, "device": kind, "nvidia_smi": smi})
+    del rm
+    torch.cuda.empty_cache()
+
+    _phase[0] = "train_bc"
+    check_precision("train_bc")
+    t_phase = time.perf_counter()
+    bc64 = recipe_model(TRAIN_RECIPE, "float64", "cpu", BCGPMDM)
+    loss64 = bc64.gpdm_loss()
+    bm = recipe_model(TRAIN_RECIPE, family=BCGPMDM)
+    losses, first_s, steps_per_s = train(bm, TRAIN_RECIPE["steps"])
+    nonfinite = int(np.sum(~np.isfinite(losses)))
+    first_rel = abs(losses[0] - loss64) / abs(loss64)
+    X = bm.params.X
+    proj_err = (bm.map_y_to_x(bm.get_Y()) - X).abs().max().item()
+    proj_tol = CONDITIONED_RTOL * X.abs().median().item()
+    entry = {"phase": "train_bc", "Ny": bm.layout.Ny, "back_lengthscale":
+             bm.config.back_constraint_ls, "host_f64_lengthscale": bc64.config.back_constraint_ls,
+             "steps": len(losses), "lr": TRAIN_LR, "first_step_s": first_s,
+             "steps_per_s": steps_per_s, "first_loss": float(losses[0]),
+             "first_loss_f64_host": loss64, "first_rel": first_rel,
+             "final_loss": float(losses[-1]), "nonfinite": nonfinite,
+             "map_y_to_x_err": proj_err, "map_y_to_x_tol": proj_tol}
+    del bc64
+    if len(losses) != TRAIN_RECIPE["steps"] or nonfinite:
+        emit(entry)
+        raise AssertionError(f"train_bc: {nonfinite} non-finite of {len(losses)} losses")
+    if not first_rel <= TRAIN_FIRST_RTOL:
+        emit(entry)
+        raise AssertionError(f"train_bc: first loss {losses[0]} vs float64 {loss64}: "
+                             f"{first_rel:.2e} > {TRAIN_FIRST_RTOL}")
+    if not proj_err <= proj_tol:
+        emit(entry)
+        raise AssertionError(f"train_bc: map_y_to_x(Y) off params.X by {proj_err:.3e} > "
+                             f"{proj_tol:.3e}")
+    reset_launches()
+    rep = evaluate_pf_banked(bm, TRANSITIONS, q_seqs, q_labels, num_particles=N_PARTICLES,
+                             burn_in=5, seed=0, config=pfc)
+    bc_launches = check_launches("train_bc banked guard", T_pad)
+    emit({**entry, "banked_guard": {
+        "frame_acc": rep.frame_metrics["accuracy"], "frame_f1": rep.frame_metrics["f1"],
+        "trial_acc": rep.trial_metrics["accuracy"], "frames": rep.total_frames,
+        "banks": len(q_seqs), "particles_per_bank": N_PARTICLES, "padded_frames": T_pad,
+        "agg_fps": rep.fps, "launches": bc_launches, "gated": False},
+        "asset_frame_acc": asset_guard["frame_acc"], "seconds": time.perf_counter() - t_phase,
+        "device": kind, "nvidia_smi": smi})
+    if "--profile" in argv:
+        emit({"phase": "profile", "path": "train_bc", "Ny": bm.layout.Ny,
+              **profile_steps(bm, 20)})
+    del bm
+
     for k in kernels:
         n = k["name"]
         k["launches_by_phase"] = {"path": launches[n], "banked_guard": banked_launches[n],
                                   "fleet": fleet_launches[n], "d4_path": d4[0][n],
                                   "d4_banked_guard": d4[1][n], "c8_path": c8[0][n],
                                   "c8_banked_guard": c8[1][n], "train_guard": train_launches[n],
+                                  "train_bc_guard": bc_launches[n],
                                   "compressed_path": comp_path_launches[n],
                                   "compressed_banked_guard": comp_guard_launches[n],
                                   **{k: v[n] for k, v in compressed_launches.items()},
@@ -1225,9 +1408,12 @@ def main(argv) -> int:
     return 0
 
 
-# kernel-name fragments by kind: cuSOLVER's potrf runs getrf-without-pivot
-# and syrk kernels; cuBLAS's trsm; the products (gemm, gemv, xmma)
-KERNEL_KINDS = (("cholesky (potrf)", ("potrf", "getrf", "syrk")),
+# kernel-name fragments by kind, the first match taken: cuSOLVER's QR
+# (geqrf and the Householder updates, larf*, and orgqr / ormqr); its potrf
+# runs getrf-without-pivot and syrk kernels; cuBLAS's trsm; the products
+# (gemm, gemv, xmma)
+KERNEL_KINDS = (("qr (geqrf)", ("geqr", "larf", "orgqr", "ormqr", "orm2r", "org2r")),
+                ("cholesky (potrf)", ("potrf", "getrf", "syrk")),
                 ("triangular solve", ("trsm", "trsv")),
                 ("matmul", ("gemm", "gemv", "xmma", "dot_kernel")))
 

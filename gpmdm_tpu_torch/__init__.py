@@ -10,7 +10,8 @@ The package imports neither JAX nor ``gpmdm_tpu``.
 
 from .config import GPMDMConfig, PFConfig, TrainConfig
 from .filter.particle_filter import GPMDM_PF
+from .models.back_constrained import BCGPMDM
 from .models.gpmdm import GPMDM
 from .models.sparse_gpmdm import SparseGPMDM
 
-__all__ = ["GPMDM", "GPMDMConfig", "GPMDM_PF", "PFConfig", "SparseGPMDM", "TrainConfig"]
+__all__ = ["BCGPMDM", "GPMDM", "GPMDMConfig", "GPMDM_PF", "PFConfig", "SparseGPMDM", "TrainConfig"]

@@ -433,21 +433,24 @@ def next_x(mean: torch.Tensor, var: torch.Tensor, Xold: torch.Tensor, cfg: GPMDM
     return out
 
 
-def rollout(post: Posterior, params: GPMDMParams, x0: torch.Tensor, n_steps: int,
-            class_index: int, cfg: GPMDMConfig, sample: bool = False,
-            generator: torch.Generator | None = None,
-            noise: torch.Tensor | None = None) -> torch.Tensor:
+def rollout(post, params, x0: torch.Tensor, n_steps: int, class_index: int,
+            cfg: GPMDMConfig, sample: bool = False, generator: torch.Generator | None = None,
+            noise: torch.Tensor | None = None, predict=None) -> torch.Tensor:
     """Autoregressive latent rollout under one class's dynamics.
 
     x0: (d,) (back_step=1) or (2, d) [x(t), x(t-1)] (back_step=2);
     ``noise`` (n_steps, d), when given, holds the standard normal draws of
-    each step.  Returns the (n_steps, d) trajectory of x(t+1..t+n_steps).
+    each step.  ``predict`` is the posterior family's single-class dynamics
+    prediction (:func:`predict_x_for_class` by default; a sparse model's is
+    ``sparse.predict_x_for_class``).  Returns the (n_steps, d) trajectory
+    of x(t+1..t+n_steps).
     """
+    predict = predict_x_for_class if predict is None else predict
     x_t, x_tm1 = (x0, None) if cfg.dyn_back_step == 1 else (x0[0], x0[1])
     traj = []
     for i in range(n_steps):
         xin = x_t if cfg.dyn_back_step == 1 else torch.cat([x_t, x_tm1])
-        mean, var = predict_x_for_class(post, params, xin[None, :], class_index, cfg)
+        mean, var = predict(post, params, xin[None, :], class_index, cfg)
         xn = next_x(mean[0], var[0], x_t, cfg, sample, generator,
                     None if noise is None else noise[i])
         x_t, x_tm1 = xn, x_t

@@ -26,6 +26,7 @@ import torch
 from ..config import GPMDMConfig, TrainConfig
 from ..ops import kernels as K
 from ..ops.layout import DataLayout, build_layout, class_block_mask, xin_xout
+from ..train.trainer import exact_objective, train_adam
 from . import core, sparse
 
 
@@ -251,6 +252,13 @@ class GPMDM:
     def init_X(self) -> None:
         """PCA-initialize the latent matrix, create the parameters on the
         model's device and build the posterior."""
+        self._init_params()
+        self._precompute_kernel_inverses()
+
+    def _init_params(self) -> np.ndarray:
+        """Freeze the layout, set ``GPMDMParams`` at the initial
+        hyperparameters around the PCA latents on the model's device, and
+        drop any Adam state.  Returns the PCA latents, (Ny, d) float64."""
         self.layout = self._build_layout()
         X0 = core.pca_init_x(self.get_Y(), self.config.d)
         h = self._init_hypers
@@ -259,7 +267,7 @@ class GPMDM:
             h["x_lengthscales_init"], h["x_lambdas_init"], h["x_sigma_n_init"],
             h["x_lin_coeff_init"], X0=X0, device=self.device)
         self._opt_state = None
-        self._precompute_kernel_inverses()
+        return X0
 
     def set_params(self, host_params: dict, lazy: bool = False) -> None:
         """Freeze the layout, take the parameters and build the posterior
@@ -378,22 +386,36 @@ class GPMDM:
         ``logger`` (``utils.logging.MetricLogger``) receives loss and steps/s
         per chunk of ``num_print_steps``.  ``optimizer='lbfgs'`` is not
         ported and raises."""
-        from ..train.trainer import train_adam as _train
-
         self._require_init()
-
-        def log(step, loss, t):
-            print(f"GPDM Opt. step {step}: loss {loss:.4e}  ({t:.1f}s)")
-
-        tc = TrainConfig(num_steps=num_opt_steps, lr=lr, balance=balance,
-                         print_every=num_print_steps, optimizer=optimizer)
-        result = _train(self.params, self._Y(), self.config, self.layout, tc,
-                        mode=self._training_mode or "all", opt_state=self._opt_state,
-                        log_fn=log if num_print_steps else None, logger=logger)
+        result = self._run_adam(self.params, num_opt_steps, num_print_steps, lr, balance,
+                                logger, optimizer)
         self.params = result.params
         self._opt_state = result.opt_state
         self._precompute_kernel_inverses()
         return result.losses.cpu().tolist()
+
+    #: The family's objective (``train.trainer.train_adam``'s) and the
+    #: label of its progress lines.
+    _objective, _train_label = staticmethod(exact_objective), "GPDM"
+
+    def _run_adam(self, params, num_opt_steps, num_print_steps, lr, balance, logger,
+                  optimizer):
+        """``train.trainer.train_adam`` on ``params`` from the instance's
+        Adam state, in the training mode, for this family."""
+
+        def log(step, loss, t):
+            print(f"{self._train_label} Opt. step {step}: loss {loss:.4e}  ({t:.1f}s)")
+
+        tc = TrainConfig(num_steps=num_opt_steps, lr=lr, balance=balance,
+                         print_every=num_print_steps, optimizer=optimizer)
+        return train_adam(params, self._Y(), self.config, self.layout, tc,
+                          mode=self._training_mode or "all", opt_state=self._opt_state,
+                          log_fn=log if num_print_steps else None, objective=self._objective,
+                          logger=logger)
+
+    def _params_for_save(self):
+        """The parameters a checkpoint stores (``utils.io.save_model``)."""
+        return self.params
 
     # ----------------------------------------------------------- prediction
 
@@ -428,13 +450,19 @@ class GPMDM:
                            sample=flg_sample, generator=generator)
 
     def rollout(self, x0, n_steps: int, class_index: int, sample: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
         """Autoregressive latent rollout under one class's dynamics:
-        (n_steps, d)."""
-        self._require_init()
+        (n_steps, d).  ``noise`` (n_steps, d) holds the standard normal draws
+        of each step when ``sample``; else ``generator`` draws them."""
+        self._require_posterior()
         x0 = torch.as_tensor(np.asarray(x0), device=self.device).to(self.dtype)
         return core.rollout(self.posterior, self.params, x0, n_steps, class_index,
-                            self.config, sample=sample, generator=generator)
+                            self.config, sample=sample, generator=generator, noise=noise,
+                            predict=self._predict_x_for_class)
+
+    #: The single-class dynamics prediction of the model's own posterior.
+    _predict_x_for_class = staticmethod(core.predict_x_for_class)
 
     # ------------------------------------------------- reference API parity
 

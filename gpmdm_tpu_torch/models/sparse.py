@@ -29,9 +29,20 @@ kernel, so here they are ``torch.linalg.solve_triangular`` and
 The factors come from the host in float64 (``precompute_host``), cast to
 the model dtype.  ``distill_host`` builds them for a trained exact model
 from its own hyperparameters and latents, with inducing inputs chosen as
-an even-stride subset of the latents or as their k-means centroids.  The
-sparse family's training (``sparse_nll`` and the device precompute) is
-not ported yet.
+an even-stride subset of the latents or as their k-means centroids.
+
+Training minimises the VFE objective per GP (multi-output, with the
+per-dimension output scales w = exp(log_lambdas) and noise sigma^2):
+
+    L = Dout/2 (log|B| + N log sigma^2) + 1/(2 sigma^2) sum_j w_j^2 (|y_j|^2 - |c_j|^2)
+        - N log|W| + Dout/(2 sigma^2) tr(Knn - Qnn)
+
+(``sparse_nll``: the observation GP, plus the dynamics GPs of every class
+in one batched factorization), differentiated by ``torch.autograd``.  The
+objective's jitters and capacitance follow the model dtype
+(``cfg.dtype``), whatever the tensors' dtype: in float32 the capacitance
+factor LB comes from a QR of ``[A^T; I]`` (``_lb_via_qr``), never from a
+Cholesky of ``B``.
 """
 
 from __future__ import annotations
@@ -46,8 +57,9 @@ import torch
 from ..config import GPMDMConfig
 from ..ops import kernels as K
 from ..ops import kernels_host as KH
+from ..ops import linalg as LA
 from ..ops.layout import DataLayout, padded_class_indices
-from .core import PARAM_FIELDS, host_f64, tensor_from_numpy
+from .core import PARAM_FIELDS, host_f64, hyperprior_penalty, tensor_from_numpy
 
 #: The fields of ``SparseParams``, in the JAX package's order.
 SPARSE_PARAM_FIELDS = PARAM_FIELDS + ("Zy", "Zx")
@@ -136,9 +148,134 @@ _JITTER = 1e-6
 _KUU_JITTER = {"float32": 1e-4, "float64": 1e-6}
 
 
-def _kuu_jitter(dtype: str) -> float:
-    """Kuu's jitter for the model dtype name (``GPMDMConfig.dtype``)."""
-    return _KUU_JITTER.get(dtype, 1e-4)
+def _kuu_jitter(dtype) -> float:
+    """Kuu's jitter for a torch dtype or a model dtype name
+    (``GPMDMConfig.dtype``)."""
+    return _KUU_JITTER.get(str(dtype).removeprefix("torch."), 1e-4)
+
+
+def _lb_via_qr(A: torch.Tensor) -> torch.Tensor:
+    """``chol(I + A A^T)`` for A (..., M, N), N >= 0, without forming
+    ``I + A A^T``: the R factor of the reduced QR of ``[A^T; I]`` satisfies
+    ``R^T R = A A^T + I``, so ``LB = R^T`` with its diagonal made positive
+    (a sign of 0 taken as 1).
+
+    At Ny ~ 54,000 rows a class and a trained sigma_n ~ 0.04, ``B = I +
+    A A^T`` reaches a condition of ~3.4e7.  Its exact Cholesky pivots are
+    all >= 1, but fp32 pivots carry an absolute error ~ eps ||B|| ~ 2, and
+    the JAX package's f32 training froze on a NaN there.  The stacked QR's
+    error scales with ||[A^T; I]|| = sqrt(||B||), ~7e-4 against pivots of
+    1.  The cost is the same O(N M^2) as forming A A^T."""
+    M = A.shape[-2]
+    eye = torch.eye(M, dtype=A.dtype, device=A.device).expand(A.shape[:-2] + (M, M))
+    _, R = torch.linalg.qr(torch.cat([A.mT, eye], dim=-2), mode="reduced")  # (..., M, M)
+    s = torch.sign(torch.diagonal(R, dim1=-2, dim2=-1))
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    return (R * s[..., :, None]).mT
+
+
+def _sgpr_terms(Kmm, Kmn, knn_diag, Y, log_sigma, w2, n_valid, dtype: torch.dtype,
+                col_mask=None, sigma_n_num: float = 0.0, qr_b: bool | None = None):
+    """The VFE pieces of one GP, or of a batch of GPs on a leading axis:
+    Kmm (..., M, M), Kmn (..., M, N), knn_diag (..., N), Y (..., N, Dout),
+    w2 (Dout,).  ``dtype`` is the model dtype (``cfg.torch_dtype``): it sets
+    Kuu's jitter and the relative floors, so float64 tensors with a float32
+    model evaluate the float32 objective without its rounding.
+    ``col_mask`` (..., N) zeroes padded data columns and ``n_valid`` is the
+    true data count.  ``qr_b`` picks the capacitance factorization: the
+    stacked QR (``_lb_via_qr``) or the Cholesky of ``I + A A^T``; None takes
+    the QR for a float32 model and the Cholesky for a float64 one.  Returns
+    (nll (...), Lm, LB, c) with c = LB^-1 A Y."""
+    M = Kmm.shape[-1]
+    sigma2 = torch.exp(log_sigma) ** 2 + sigma_n_num**2 + _JITTER
+    if col_mask is not None:
+        Kmn = Kmn * col_mask[..., None, :]
+        knn_diag = knn_diag * col_mask
+        Y = Y * col_mask[..., :, None]
+    Lm = LA.chol_lower(Kmm, jitter=_kuu_jitter(dtype), floor_dtype=dtype)
+    A = LA.tri_solve(Lm, Kmn) / torch.sqrt(sigma2)  # (..., M, N)
+    if qr_b is None:
+        qr_b = dtype == torch.float32
+    if qr_b:
+        LB = _lb_via_qr(A)
+    else:
+        LB = LA.chol_lower(torch.eye(M, dtype=Kmm.dtype, device=Kmm.device) + A @ A.mT,
+                           floor_dtype=dtype)
+    logdet_B = LA.chol_logdet(LB)
+    c = LA.tri_solve(LB, A @ Y)  # (..., M, Dout)
+    quad = (torch.sum(Y * Y, dim=-2) - torch.sum(c * c, dim=-2)) / sigma2[..., None]
+    # a cancellation at large N, kept in this order
+    trace = (torch.sum(knn_diag, dim=-1) - sigma2 * torch.sum(A * A, dim=(-2, -1))) / sigma2
+    Dout = Y.shape[-1]
+    nll = (Dout / 2.0 * (logdet_B + n_valid * torch.log(sigma2))
+           + 0.5 * torch.sum(w2 * quad, dim=-1)
+           - n_valid * 0.5 * torch.sum(torch.log(w2))
+           + Dout / 2.0 * trace)
+    return nll, Lm, LB, c
+
+
+def class_pads(layout: DataLayout, device, dtype: torch.dtype) -> dict:
+    """``padded_class_indices`` as tensors on ``device``: the (C, n_max)
+    gathers as int64 and the mask in ``dtype``.  A training run makes them
+    once, not once a step."""
+    pads = padded_class_indices(layout)
+    out = {k: torch.as_tensor(pads[k], dtype=torch.int64, device=device)
+           for k in ("idx_in", "idx_prev", "idx_out")}
+    out["mask"] = torch.as_tensor(pads["mask"], device=device).to(dtype)
+    return out
+
+
+def _class_xin_xout(params, cfg: GPMDMConfig, pads: dict):
+    """Padded per-class (Xin_c, Xout_c, mask) from the latent matrix:
+    (C, n_max, d * back_step), (C, n_max, d) and (C, n_max)."""
+    X, mask = params.X, pads["mask"]
+    x_t = X[pads["idx_in"]] * mask[:, :, None]
+    if cfg.dyn_back_step == 1:
+        Xin_c = x_t
+    else:
+        Xin_c = torch.cat([x_t, X[pads["idx_prev"]] * mask[:, :, None]], dim=2)
+    Xout_c = X[pads["idx_out"]] * mask[:, :, None]
+    if cfg.dyn_target == "delta":
+        Xout_c = Xout_c - x_t
+    return Xin_c, Xout_c, mask
+
+
+def y_sparse_nll(params: SparseParams, Y: torch.Tensor, cfg: GPMDMConfig) -> torch.Tensor:
+    """The observation map's VFE NLL (the sparse form of
+    ``core.y_neg_log_likelihood``)."""
+    Kmm = K.rbf_kernel(params.Zy, params.Zy, params.y_log_lengthscales)
+    Kmn = K.rbf_kernel(params.Zy, params.X, params.y_log_lengthscales)
+    knn_diag = torch.ones(params.X.shape[0], dtype=Y.dtype, device=Y.device)
+    return _sgpr_terms(Kmm, Kmn, knn_diag, Y, params.y_log_sigma_n,
+                       torch.exp(params.y_log_lambdas) ** 2, Y.shape[0], cfg.torch_dtype,
+                       sigma_n_num=cfg.sigma_n_num_Y)[0]
+
+
+def x_sparse_nll(params: SparseParams, cfg: GPMDMConfig, pads: dict) -> torch.Tensor:
+    """The dynamics maps' VFE NLL, every class's GP batched on the class
+    axis and summed (``pads`` from :func:`class_pads`)."""
+    Xin_c, Xout_c, mask = _class_xin_xout(params, cfg, pads)
+    ls, sn, lin = params.x_log_lengthscales, params.x_log_sigma_n, params.x_log_lin_coeff
+    Kmm = K.x_kernel(params.Zx, params.Zx, ls, sn, lin, with_noise=False)
+    Kmn = K.x_kernel(params.Zx, Xin_c, ls, sn, lin, with_noise=False)
+    knn_diag = K.x_diag_kernel(Xin_c, lin, sn)
+    nll = _sgpr_terms(Kmm, Kmn, knn_diag, Xout_c, sn, torch.exp(params.x_log_lambdas) ** 2,
+                      torch.sum(mask, dim=-1), cfg.torch_dtype, col_mask=mask,
+                      sigma_n_num=cfg.sigma_n_num_X)[0]
+    return torch.sum(nll)
+
+
+def sparse_nll(params: SparseParams, Y: torch.Tensor, cfg: GPMDMConfig, layout: DataLayout,
+               balance: float = 1.0, pads: dict | None = None) -> torch.Tensor:
+    """The sparse MAP objective L_y + balance * L_x plus the optional
+    log-hyperprior (``core.hyperprior_penalty``); ``balance`` applies under
+    ``cfg.balance_fix`` only.  ``pads`` (:func:`class_pads`) is made here
+    when not given."""
+    if pads is None:
+        pads = class_pads(layout, Y.device, Y.dtype)
+    b = balance if cfg.balance_fix else 1.0
+    return (y_sparse_nll(params, Y, cfg) + b * x_sparse_nll(params, cfg, pads)
+            + hyperprior_penalty(params, cfg))
 
 
 def _inverses(Lm: torch.Tensor, LB: torch.Tensor) -> torch.Tensor:

@@ -35,13 +35,16 @@ def cholesky(K: torch.Tensor) -> torch.Tensor:
     return torch.where((info > 0)[..., None, None], torch.full_like(L, float("nan")).tril(), L)
 
 
-def chol_lower(K: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+def chol_lower(K: torch.Tensor, jitter: float = 0.0,
+               floor_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Lower Cholesky factor of K (+ jitter * I + dtype-relative floor).
 
     The relative floor (f32: 1e-5 x the mean diagonal) is what keeps f32
-    factorizations of near-singular trained dynamics Grams finite.
+    factorizations of near-singular trained dynamics Grams finite.  It is
+    that of K's dtype, or of ``floor_dtype`` when given (a float64
+    evaluation of a float32 objective).
     """
-    eps_rel = _REL_JITTER.get(K.dtype, 0.0)
+    eps_rel = _REL_JITTER.get(floor_dtype or K.dtype, 0.0)
     if jitter or eps_rel:
         total = jitter
         if eps_rel:

@@ -1,13 +1,20 @@
-"""MAP training of the exact GPMDM with Adam.
+"""MAP training of every GPMDM family with Adam.
 
 Counterpart of ``gpmdm_tpu/train/trainer.py``:
 
-- Adam over all parameters (hyperparameters and the latent X jointly),
-  written as a small functional update that matches ``optax.adam(lr)``
-  step for step (b1 0.9, b2 0.999, eps 1e-8, eps_root 0; the count is
-  incremented before the bias correction).  It is not
-  ``torch.optim.Adam``: the NaN freeze below must revert the moments and
-  the count as well as the parameters, which an in-place optimizer cannot.
+- Adam over all parameters (hyperparameters and the latent X jointly, and
+  a sparse model's inducing inputs), written as a small functional update
+  that matches ``optax.adam(lr)`` step for step (b1 0.9, b2 0.999, eps
+  1e-8, eps_root 0; the count is incremented before the bias correction).
+  It is not ``torch.optim.Adam``: the NaN freeze below must revert the
+  moments and the count as well as the parameters, which an in-place
+  optimizer cannot.
+- The model family's ``objective`` gives the trainability mask and the
+  loss: :func:`exact_objective` (``core.nll``), :func:`sparse_objective`
+  (``sparse.sparse_nll`` over ``SparseParams``) or the back-constrained
+  model's ``back_constrained.bc_objective`` (W in the X slot).  The
+  parameters, the Adam moments and the masks are all of the parameters'
+  class.
 - Trainability flags and training modes are gradient masks that select,
   never multiply, so a non-finite gradient on a frozen leaf is dropped.
 - A step whose loss or (unfrozen) gradient is not finite keeps the
@@ -17,12 +24,13 @@ Counterpart of ``gpmdm_tpu/train/trainer.py``:
 The loss history stays on the device; the host reads it once a chunk of
 ``print_every`` steps (the JAX package's ``lax.scan`` chunks), where the
 logging, checkpointing and the stop after a frozen step happen.
-L-BFGS and the sparse and back-constrained model families are not ported.
+L-BFGS is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, List
 
@@ -30,36 +38,43 @@ import numpy as np
 import torch
 
 from ..config import GPMDMConfig, TrainConfig
-from ..models import core
+from ..models import core, sparse
 from ..ops.layout import DataLayout
 
-FIELDS = core.PARAM_FIELDS
 B1, B2, EPS = 0.9, 0.999, 1e-8
 _INT32_MAX = 2**31 - 1
 
 
-def _leaves(p: core.GPMDMParams) -> List[torch.Tensor]:
-    return [getattr(p, f) for f in FIELDS]
+def _names(p) -> List[str]:
+    return [f.name for f in dataclasses.fields(p)]
 
 
-def _params(leaves) -> core.GPMDMParams:
-    return core.GPMDMParams(**dict(zip(FIELDS, leaves)))
+def _leaves(p) -> List[torch.Tensor]:
+    """The fields of a parameter dataclass (``GPMDMParams`` or
+    ``SparseParams``), in its field order: the JAX package's leaf order."""
+    return [getattr(p, f) for f in _names(p)]
+
+
+def _like(template, leaves):
+    """A parameter dataclass of ``template``'s class holding ``leaves``."""
+    return type(template)(**dict(zip(_names(template), leaves)))
 
 
 @dataclasses.dataclass
 class AdamState:
     """``optax.adam``'s state: the int32 step count and the first and
-    second moments of every parameter.  ``to_numpy`` lists the leaves in
-    optax's order (count, then ``mu`` and ``nu`` in ``PARAM_FIELDS``
-    order), the ``opt_*`` order of a checkpoint."""
+    second moments of every parameter, each moment of the parameters'
+    class.  ``to_numpy`` lists the leaves in optax's order (count, then
+    ``mu`` and ``nu`` in field order), the ``opt_*`` order of a
+    checkpoint."""
 
     count: torch.Tensor  # () int32
-    mu: core.GPMDMParams
-    nu: core.GPMDMParams
+    mu: object  # the parameters' class
+    nu: object
 
     @classmethod
-    def init(cls, params: core.GPMDMParams) -> "AdamState":
-        zeros = lambda: _params([torch.zeros_like(t) for t in _leaves(params)])  # noqa: E731
+    def init(cls, params) -> "AdamState":
+        zeros = lambda: _like(params, [torch.zeros_like(t) for t in _leaves(params)])  # noqa: E731
         return cls(count=torch.zeros((), dtype=torch.int32, device=params.X.device),
                    mu=zeros(), nu=zeros())
 
@@ -68,16 +83,20 @@ class AdamState:
                 for t in [self.count] + _leaves(self.mu) + _leaves(self.nu)]
 
     @classmethod
-    def from_numpy(cls, leaves, dtype: torch.dtype, device="cuda") -> "AdamState":
-        """The state from numpy leaves in optax's order (a checkpoint's
-        ``opt_*`` entries, or ``jax.tree.leaves`` of an ``optax.adam``
-        state); the moments are cast to ``dtype``."""
-        n = len(FIELDS)
+    def from_numpy(cls, leaves, dtype: torch.dtype, device="cuda",
+                   param_cls=core.GPMDMParams) -> "AdamState":
+        """The state over ``param_cls`` from numpy leaves in optax's order
+        (a checkpoint's ``opt_*`` entries, or ``jax.tree.leaves`` of an
+        ``optax.adam`` state); the moments are cast to ``dtype``."""
+        names = [f.name for f in dataclasses.fields(param_cls)]
+        n = len(names)
         if len(leaves) != 1 + 2 * n:
-            raise ValueError(f"an Adam state has {1 + 2 * n} leaves, got {len(leaves)}")
+            raise ValueError(f"an Adam state over {param_cls.__name__} has {1 + 2 * n} "
+                             f"leaves, got {len(leaves)}")
         t = [core.tensor_from_numpy(a, dtype, device) for a in leaves[1:]]
         count = core.tensor_from_numpy(leaves[0], torch.int32, device).reshape(())
-        return cls(count=count, mu=_params(t[:n]), nu=_params(t[n:]))
+        return cls(count=count, mu=param_cls(**dict(zip(names, t[:n]))),
+                   nu=param_cls(**dict(zip(names, t[n:]))))
 
 
 def adam_update(grads: List[torch.Tensor], state: AdamState, lr: float):
@@ -93,7 +112,7 @@ def adam_update(grads: List[torch.Tensor], state: AdamState, lr: float):
         m_hat = m / (1 - B1 ** c)
         v_hat = v / (1 - B2 ** c)
         updates.append(-lr * (m_hat / (torch.sqrt(v_hat) + EPS)))
-    return updates, AdamState(count=count, mu=_params(mu), nu=_params(nu))
+    return updates, AdamState(count=count, mu=_like(state.mu, mu), nu=_like(state.nu, nu))
 
 
 def trainable_mask(cfg: GPMDMConfig, mode: str = "all") -> core.GPMDMParams:
@@ -119,6 +138,30 @@ def trainable_mask(cfg: GPMDMConfig, mode: str = "all") -> core.GPMDMParams:
     )
 
 
+def sparse_trainable_mask(cfg: GPMDMConfig, mode: str = "all"):
+    """``SparseParams``' trainability: the exact model's mask, with the
+    inducing inputs Zy trained with the observation group and Zx with the
+    dynamics group."""
+    base = trainable_mask(cfg, mode)
+    return sparse.SparseParams(**{f: getattr(base, f) for f in core.PARAM_FIELDS},
+                               Zy=1.0 if mode in ("all", "latent") else 0.0,
+                               Zx=1.0 if mode in ("all", "dynamics") else 0.0)
+
+
+def exact_objective(cfg: GPMDMConfig, mode: str, Y: torch.Tensor, layout: DataLayout):
+    """The exact family's (trainability mask, loss_fn) for ``train_adam``.
+    An objective takes the run's Y on its device, and makes once what is
+    constant over the run."""
+    return trainable_mask(cfg, mode), core.nll
+
+
+def sparse_objective(cfg: GPMDMConfig, mode: str, Y: torch.Tensor, layout: DataLayout):
+    """The sparse family's (mask, loss_fn), with the padded class gathers
+    made once on Y's device from the host ``layout``."""
+    return sparse_trainable_mask(cfg, mode), functools.partial(
+        sparse.sparse_nll, pads=sparse.class_pads(layout, Y.device, Y.dtype))
+
+
 def _mask_grad(g: torch.Tensor, m: float) -> torch.Tensor:
     """The gradient of a trainable leaf, zeros for a frozen one.  Select,
     never multiply: ``g * 0`` keeps a NaN, and the finite-step check would
@@ -133,7 +176,7 @@ def _finite_step(loss: torch.Tensor, grads: List[torch.Tensor]) -> torch.Tensor:
 
 
 def make_update_step(cfg: GPMDMConfig, layout: DataLayout, lr: float, balance: float,
-                     mask: core.GPMDMParams, loss_fn: Callable | None = None) -> Callable:
+                     mask, loss_fn: Callable | None = None) -> Callable:
     """One Adam step ``(params, opt_state, Y) -> (params, opt_state, loss)``:
     the loss and its gradient by autograd, masked by ``mask``, the Adam
     update, and the NaN freeze.  ``loss_fn(params, Y, cfg, layout,
@@ -142,11 +185,11 @@ def make_update_step(cfg: GPMDMConfig, layout: DataLayout, lr: float, balance: f
         loss_fn = core.nll
     flags = _leaves(mask)
 
-    def step(params: core.GPMDMParams, opt_state: AdamState, Y: torch.Tensor):
+    def step(params, opt_state: AdamState, Y: torch.Tensor):
         old = [t.detach() for t in _leaves(params)]
         with torch.enable_grad():
             leaves = [t.clone().requires_grad_(True) for t in old]
-            loss = loss_fn(_params(leaves), Y, cfg, layout, balance)
+            loss = loss_fn(_like(params, leaves), Y, cfg, layout, balance)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         with torch.no_grad():
             grads = [_mask_grad(torch.zeros_like(t) if g is None else g, m)
@@ -154,13 +197,13 @@ def make_update_step(cfg: GPMDMConfig, layout: DataLayout, lr: float, balance: f
             updates, new_state = adam_update(grads, opt_state, lr)
             ok = _finite_step(loss, grads)
             keep = lambda new, prev: torch.where(ok, new, prev)  # noqa: E731
-            new_params = _params([keep(p + u, p) for p, u in zip(old, updates)])
+            new_params = _like(params, [keep(p + u, p) for p, u in zip(old, updates)])
             new_state = AdamState(
                 count=keep(new_state.count, opt_state.count),
-                mu=_params([keep(a, b) for a, b in zip(_leaves(new_state.mu),
-                                                         _leaves(opt_state.mu))]),
-                nu=_params([keep(a, b) for a, b in zip(_leaves(new_state.nu),
-                                                         _leaves(opt_state.nu))]))
+                mu=_like(params, [keep(a, b) for a, b in zip(_leaves(new_state.mu),
+                                                             _leaves(opt_state.mu))]),
+                nu=_like(params, [keep(a, b) for a, b in zip(_leaves(new_state.nu),
+                                                             _leaves(opt_state.nu))]))
         return new_params, new_state, loss.detach()
 
     return step
@@ -168,20 +211,24 @@ def make_update_step(cfg: GPMDMConfig, layout: DataLayout, lr: float, balance: f
 
 @dataclasses.dataclass
 class TrainResult:
-    params: core.GPMDMParams
+    params: object  # the class of the parameters trained
     opt_state: AdamState
     losses: torch.Tensor  # (steps run,) on the parameters' device
     wall_time_s: float
     steps_per_sec: float
 
 
-def train_adam(params: core.GPMDMParams, Y, cfg: GPMDMConfig, layout: DataLayout,
+def train_adam(params, Y, cfg: GPMDMConfig, layout: DataLayout,
                train_cfg: TrainConfig = TrainConfig(), mode: str = "all",
                opt_state: AdamState | None = None,
                log_fn: Callable[[int, float, float], None] | None = None,
-               logger=None) -> TrainResult:
+               objective: Callable = exact_objective, logger=None) -> TrainResult:
     """Run Adam for ``train_cfg.num_steps`` steps on the parameters' device
-    (reference train_adam).
+    (reference train_adam).  ``objective`` is the model family's (the JAX
+    package's ``kind``): :func:`exact_objective` over ``GPMDMParams``,
+    :func:`sparse_objective` over ``SparseParams``, or
+    ``back_constrained.bc_objective`` over ``GPMDMParams`` with W in the X
+    slot.
 
     Steps run in chunks of ``print_every`` (the whole run when 0, and at
     most ``checkpoint_every``); after each chunk the host reads its losses
@@ -194,15 +241,12 @@ def train_adam(params: core.GPMDMParams, Y, cfg: GPMDMConfig, layout: DataLayout
     if train_cfg.optimizer != "adam":
         raise NotImplementedError(
             f"optimizer {train_cfg.optimizer!r} is not ported to gpmdm_tpu_torch yet "
-            "(ROADMAP A.1b: L-BFGS, the orbax checkpoints and the sparse and "
-            "back-constrained trainers)")
+            "(ROADMAP A.1b: L-BFGS and the orbax checkpoints)")
     device = params.X.device
-    step = make_update_step(cfg, layout.to(device), train_cfg.lr, train_cfg.balance,
-                            trainable_mask(cfg, mode))
     if opt_state is None:
         opt_state = AdamState.init(params)
-    elif not isinstance(opt_state, AdamState):
-        raise ValueError(f"opt_state is a {type(opt_state).__name__}, not an Adam state; "
+    elif not isinstance(opt_state, AdamState) or type(opt_state.mu) is not type(params):
+        raise ValueError(f"opt_state is not an Adam state over {type(params).__name__}; "
                          "pass opt_state=None to start fresh")
 
     chunk = train_cfg.print_every if train_cfg.print_every > 0 else train_cfg.num_steps
@@ -213,6 +257,9 @@ def train_adam(params: core.GPMDMParams, Y, cfg: GPMDMConfig, layout: DataLayout
     if not torch.is_tensor(Y):
         Y = torch.as_tensor(np.asarray(Y))
     Y = Y.to(device=device, dtype=cfg.torch_dtype)
+    mask, loss_fn = objective(cfg, mode, Y, layout)
+    step = make_update_step(cfg, layout.to(device), train_cfg.lr, train_cfg.balance, mask,
+                            loss_fn)
     t0 = time.perf_counter()
     all_losses: List[torch.Tensor] = []
     done = 0

@@ -2,24 +2,26 @@
 ways, and the reference's torch pickle.
 
 A checkpoint holds the config and the constructor's initial
-hyperparameters as JSON (``meta_json``), the model class (``'GPMDM'`` or
-``'SparseGPMDM'``, with ``n_inducing_*``), the trained parameters
-(``param_<field>``), the raw observation sequences (``obs_<class>_<i>``),
-the Adam state (``opt_<i>``, optax's leaf order: count, then the first
-and second moments in ``PARAM_FIELDS`` order), the compressed-posterior
-cache (``comp_<j>_<field>``, keyed by ``compressed_keys`` and
+hyperparameters as JSON (``meta_json``), the model class (``'GPMDM'``,
+``'SparseGPMDM'`` with ``n_inducing_*``, or ``'BCGPMDM'``), the trained
+parameters (``param_<field>``; a back-constrained model's W in the X
+slot), the raw observation sequences (``obs_<class>_<i>``), the Adam
+state (``opt_<i>``, optax's leaf order: count, then the first and second
+moments in the parameters' field order), the compressed-posterior cache
+(``comp_<j>_<field>``, keyed by ``compressed_keys`` and
 ``compressed_entry_idx`` in the meta), the sparsified cache
 (``sparsified_<j>_<field>``, keyed by ``sparsified_keys`` and
 ``sparsified_entry_idx``), a sparse model's own posterior
 (``post_<field>``, with ``posterior_class``), the deployment
 recommendation and the guard receipt.  Either package reads what the
-other writes, and training of the exact family resumes from the saved
-Adam state.  Loading defers the exact posterior's float64 factorization
-to its first use, so a deployment served from a persisted cache never
-builds it; a sparse model's posterior comes from its ``post_*`` arrays,
-or from an O(N M^2) host build.  An L-BFGS state, and any optimizer
-state of a sparse model, is not read: the port trains neither yet.  The
-back-constrained family (``BCGPMDM``) is not read.
+other writes, and training of every family resumes from the saved Adam
+state.  Loading defers the exact posterior's float64 factorization to its
+first use, so a deployment served from a persisted cache never builds it;
+a sparse model's posterior comes from its ``post_*`` arrays, or from an
+O(N M^2) host build; a back-constrained model rematerializes X = K_b W
+and builds its exact posterior at once, as the JAX package does.  An
+L-BFGS state is not read: the port does not train with L-BFGS yet
+(ROADMAP A.1b).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from ..config import GPMDMConfig
 from ..models import core, sparse
+from ..models.back_constrained import BCGPMDM
 from ..models.compressed import CompressedPosterior
 from ..models.gpmdm import GPMDM, params_from_numpy
 from ..models.sparse_gpmdm import SparseGPMDM
@@ -41,7 +44,7 @@ from ..train.trainer import AdamState
 
 FORMAT_VERSION = 1
 
-_CLASSES = {"GPMDM": GPMDM, "SparseGPMDM": SparseGPMDM}
+_CLASSES = {"GPMDM": GPMDM, "SparseGPMDM": SparseGPMDM, "BCGPMDM": BCGPMDM}
 _COMP_FIELDS = [f.name for f in dataclasses.fields(CompressedPosterior)]
 
 
@@ -79,8 +82,8 @@ def _read_cache(data, meta: dict, prefix: str, name: str, fields, build) -> dict
 
 
 def save_model(model: GPMDM, file_path) -> None:
-    """Write ``model`` (a ``GPMDM`` or ``SparseGPMDM``) as a format-1
-    checkpoint at exactly ``file_path``, with its compressed-posterior
+    """Write ``model`` (a ``GPMDM``, ``SparseGPMDM`` or ``BCGPMDM``) as a
+    format-1 checkpoint at exactly ``file_path``, with its compressed-posterior
     cache (an 'auto'-rank entry past the q = N/2 FLOP-parity bound, which
     ``resolve_posterior('auto')`` would not deploy, left out), its
     sparsified cache, a sparse model's own posterior, its deployment
@@ -106,9 +109,10 @@ def save_model(model: GPMDM, file_path) -> None:
               for c, seqs in enumerate(model.class_aware_observations_list)
               for i, s in enumerate(seqs)}
     if model.params is not None:
-        meta["param_fields"] = [f.name for f in dataclasses.fields(model.params)]
+        params = model._params_for_save()
+        meta["param_fields"] = [f.name for f in dataclasses.fields(params)]
         for f in meta["param_fields"]:
-            arrays[f"param_{f}"] = _to_numpy(getattr(model.params, f))
+            arrays[f"param_{f}"] = _to_numpy(getattr(params, f))
     if model._opt_state is not None:
         leaves = model._opt_state.to_numpy()
         meta["n_opt_leaves"] = len(leaves)
@@ -142,11 +146,12 @@ def save_model(model: GPMDM, file_path) -> None:
 
 
 def load_model(file_path, device="cuda") -> GPMDM:
-    """Load a ``GPMDM`` or ``SparseGPMDM`` checkpoint onto ``device``: an
-    exact model with its Adam state when it has one and the exact
-    posterior built at its first use, a sparse model with its persisted
-    posterior (or one built on the host now), and either with its
-    compressed and sparsified caches."""
+    """Load a ``GPMDM``, ``SparseGPMDM`` or ``BCGPMDM`` checkpoint onto
+    ``device``, with its Adam state when it has one: an exact model with
+    the exact posterior built at its first use, a sparse model with its
+    persisted posterior (or one built on the host now), a back-constrained
+    model with X = K_b W rematerialized and its exact posterior built; each
+    with its compressed and sparsified caches."""
     file_path = Path(file_path)
     with np.load(file_path) as data:
         meta = json.loads(bytes(data["meta_json"]).decode("utf-8"))
@@ -157,10 +162,7 @@ def load_model(file_path, device="cuda") -> GPMDM:
             )
         model_class = meta.get("model_class", "GPMDM")
         if model_class not in _CLASSES:
-            raise ValueError(
-                f"{file_path}: model_class {model_class!r} is not ported "
-                "(the back-constrained 'BCGPMDM' is ROADMAP A.4)"
-            )
+            raise ValueError(f"{file_path}: unknown model_class {model_class!r}")
         if not meta["initialized"]:
             raise ValueError(f"{file_path}: checkpoint holds an untrained model")
         cfg = GPMDMConfig.from_dict(meta["config"])
@@ -174,13 +176,14 @@ def load_model(file_path, device="cuda") -> GPMDM:
         if isinstance(model, SparseGPMDM):
             model.n_inducing_y = int(meta["n_inducing_y"])
             model.n_inducing_x = int(meta["n_inducing_x"])
+        if isinstance(model, BCGPMDM):
+            model._back_ls_arg = cfg.back_constraint_ls
         for c, n_seq in enumerate(meta["n_sequences_per_class"]):
             for i in range(n_seq):
                 model.add_data(data[f"obs_{c}_{i}"], c)
         host_params = {f: np.asarray(data[f"param_{f}"], dtype=np.float64) for f in fields}
         opt_leaves = None
-        if (meta.get("has_opt_state") and meta.get("optimizer_name", "adam") == "adam"
-                and model_class == "GPMDM"):
+        if meta.get("has_opt_state") and meta.get("optimizer_name", "adam") == "adam":
             opt_leaves = [data[f"opt_{i}"] for i in range(meta["n_opt_leaves"])]
         post_arrays = None
         if meta.get("posterior_class") == "SparsePosterior":
@@ -192,7 +195,13 @@ def load_model(file_path, device="cuda") -> GPMDM:
         spc = _read_cache(data, meta, "sparsified", "sparsified", sparse.POSTERIOR_FIELDS,
                           lambda a: sparse.SparsePosterior.from_numpy(
                               a, model.dtype, model.device, distilled=True))
-    if post_arrays is None:
+    if isinstance(model, BCGPMDM):
+        # the X slot holds W: X = K_b W, and the exact posterior of it
+        model.layout = model._build_layout()
+        model.params = params_from_numpy(host_params, model.dtype, model.device)
+        model._W = model.params.X
+        model._materialize()
+    elif post_arrays is None:
         model.set_params(host_params, lazy=True)
     else:
         # the persisted factors: no O(N M^2) host build
@@ -206,7 +215,8 @@ def load_model(file_path, device="cuda") -> GPMDM:
     model._deploy_recommendation = meta.get("deploy_recommendation") or None
     model._guard_receipt = meta.get("guard_receipt") or None
     if opt_leaves is not None:
-        model._opt_state = AdamState.from_numpy(opt_leaves, model.dtype, model.device)
+        model._opt_state = AdamState.from_numpy(opt_leaves, model.dtype, model.device,
+                                                type(model.params))
     return model
 
 

@@ -127,19 +127,33 @@ def test_load_model_matches_jax(asset):
 
 
 def test_load_model_rejects_other_families(tmp_path):
-    """The back-constrained family is not ported: its checkpoint is
-    refused by name; a checkpoint whose parameters do not fit the family
-    it names is refused too."""
+    """A family the port does not know is refused by name, and so is a
+    checkpoint whose parameters do not fit the family it names.  The
+    back-constrained family, once refused, loads: the X slot is W, and X
+    is rematerialized as K_b W."""
     src = np.load(ASSETS / "bench_model.npz")
     arrays = {k: src[k] for k in src.files}
     meta = json.loads(bytes(arrays["meta_json"]).decode())
-    for family, match in (("BCGPMDM", "'BCGPMDM' is not ported"),
-                          ("SparseGPMDM", "unexpected parameter fields")):
+
+    def write(family, **config):
         meta["model_class"] = family
+        meta["config"].update(config)
         arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
         np.savez(tmp_path / "other.npz", **arrays)
+        return tmp_path / "other.npz"
+
+    for family, match in (("MysteryGPMDM", "unknown model_class 'MysteryGPMDM'"),
+                          ("SparseGPMDM", "unexpected parameter fields")):
         with pytest.raises(ValueError, match=match):
-            load_model(tmp_path / "other.npz", device="cpu")
+            load_model(write(family), device="cpu")
+    m = load_model(write("BCGPMDM", back_constraint_ls=2.5), device="cpu")
+    assert type(m).__name__ == "BCGPMDM" and m.config.back_constraint_ls == 2.5
+    W = torch.as_tensor(arrays["param_X"])
+    assert torch.equal(m._W, W)
+    from gpmdm_tpu_torch.models.back_constrained import back_kernel
+
+    Y = torch.as_tensor(m.get_Y())
+    torch.testing.assert_close(m.params.X, back_kernel(Y, Y, 2.5, torch.float32) @ W)
 
 
 @pytest.mark.parametrize("seed,kw", [(0, {}), (7, {"n_classes": 3, "D": 9, "seq_len": 25}),

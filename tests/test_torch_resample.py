@@ -8,6 +8,8 @@ version of kernel K3) against the JAX package's, on the CPU.
 - The banked ``systematic_resample_indices`` against ``jax.vmap`` of the
   JAX function, on weights whose fp32 cumulative sum is exact in any
   order.
+- ``systematic_counts`` on the plain cumsum of the weights at every P,
+  up to 100,000.
 
 Every check is bit-identical: the ranks are integer counts.  The CUDA
 kernel itself is tested on the card (tests/test_torch_cuda.py) and under
@@ -96,3 +98,15 @@ def test_banked_systematic_indices_match_jax_vmap():
                                               torch.as_tensor(log_w),
                                               w=torch.as_tensor(w), rank=rank)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("P", [10_000, 32_767, 100_000])
+def test_counts_use_the_plain_cumsum(P):
+    """The counts from ``torch.cumsum`` at every P.  The JAX package blocks
+    its cumsum from 32,768 particles, a speed-up for the TPU's vector
+    units; on the card ``torch.cumsum`` is one launch."""
+    rng = np.random.default_rng(P)
+    w = torch.as_tensor(rng.dirichlet(np.full(P, 0.5)).astype(np.float32))
+    u = torch.tensor(0.61)
+    manual = torch.clamp(torch.floor(P * torch.cumsum(w, 0) - u).to(torch.int64) + 1, 0, P)
+    assert torch.equal(tpf.systematic_counts(u, torch.log(w), w)[0], manual.to(torch.int32))
