@@ -174,6 +174,31 @@ Phases, each printing one JSON line on stdout:
              banked guard's 12 trials (P = 10,000, padded to 64 frames)
              with exactly 64 launches of each of K1, K2 and K3; accuracy
              reported, not gated.
+15. train_lbfgs - the bench_model.npz recipe from its PCA init, 30
+             L-BFGS steps (optax.lbfgs, memory 10; GPMDM.train_lbfgs):
+             every loss finite, the last below the first, the first within
+             1e-3 relative of the port's float64 loss on the host.  Reports
+             steps/s, loss evaluations and host reads a step, and over 3
+             profiled steps more the kernel launches a step and an
+             evaluation; then the banked guard (12 x 10,000, exactly 64
+             launches of each of K1, K2 and K3), reported, not gated.
+16. lbfgs_resume - bench_model_hourlongh.npz on the card: its 57 L-BFGS
+             leaves must equal the file's bit for bit; 3 steps from that
+             state: the count + 3, finite losses, the first within 1e-3 of
+             the host's float64 evaluation of the fp32 objective at the
+             asset's parameters, the last not above the first; then a save
+             and a load: optimizer 'lbfgs', memory 10, 57 leaves equal to
+             the saved state.  Seconds, peak GiB, evaluations a step.
+17. cli     - ``python -m gpmdm_tpu_torch`` in subprocesses with the
+             platform pin unset (the card), each started as soon as the
+             file it reads exists: train (Adam, 60 steps) and train
+             --optimizer lbfgs (10 steps) on the synthetic fallback and
+             eval of bench_model.npz at P = 500; eval --banked --trace of
+             the trained model and deploy --sparsify 64 of it; rollout of
+             the deployed one.  Each must exit 0;
+             the asset's frame accuracy must reach 0.90, and the trace
+             must name K1 (x_onepass or posterior_core<TP, 1>), K2
+             (posterior_core<TP, 2>) and K3 (resample_rank_kernel).
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -184,12 +209,15 @@ from __future__ import annotations
 
 import dataclasses
 import faulthandler
+import glob
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -228,6 +256,16 @@ TRAIN_FINAL_RTOL = 0.05  # final loss against the committed asset's
 # the sparse family at BASELINE.md's hour-long scale: Adam steps from the
 # PCA init, and more steps resumed from the asset's stored Adam state
 SPARSE_TRAIN_STEPS, SPARSE_RESUME_STEPS = 30, 20
+# L-BFGS (optax.lbfgs, memory 10): steps from the recipe's PCA init, steps
+# profiled after them, and steps resumed from hourlongh's stored state
+LBFGS_STEPS, LBFGS_PROFILE_STEPS, LBFGS_RESUME_STEPS = 30, 3, 3
+# the port's command line, run in subprocesses on the card: each one's
+# time limit, and the kernels its eval --banked --trace must show (K1 in
+# either design, K2, K3), by their names in the Chrome trace
+CLI_TIMEOUT_S = 240
+TRACE_KERNELS = {"fused_x_posterior": r"x_onepass|posterior_core<\d+, ?1>",
+                 "fused_obs_loglik": r"posterior_core<\d+, ?2>",
+                 "resample_rank": r"resample_rank_kernel"}
 # the fp32 loss's tolerance against float64 is at least this, or 4 x the
 # host's own fp32 gap where the cancellation in the trace term is larger
 SPARSE_FIRST_RTOL = 1e-3
@@ -245,6 +283,8 @@ REPLACES = {
 }
 
 _phase = ["start"]
+# the processes this script starts, ended at the deadline
+_children: list = []
 
 
 def emit(obj) -> None:
@@ -253,6 +293,9 @@ def emit(obj) -> None:
 
 def _on_deadline(signum, frame):
     emit({"phase": _phase[0], "error": f"deadline of {DEADLINE_S} s passed"})
+    for proc in _children:
+        if proc.poll() is None:
+            proc.kill()
     os._exit(3)
 
 
@@ -1384,6 +1427,215 @@ def main(argv) -> int:
               **profile_steps(bm, 20)})
     del bm
 
+    _phase[0] = "train_lbfgs"
+    check_precision("train_lbfgs")
+    t_phase = time.perf_counter()
+    loss64 = recipe_model(TRAIN_RECIPE, "float64", "cpu").gpdm_loss()
+    lm = recipe_model(TRAIN_RECIPE)
+    lg = MetricLogger(stream=None)
+    losses = np.asarray(lm.train_lbfgs(LBFGS_STEPS, logger=lg))
+    check_precision("train_lbfgs")
+    nonfinite = int(np.sum(~np.isfinite(losses)))
+    first_rel = abs(losses[0] - loss64) / abs(loss64)
+    # kernels a step over a few more steps from the trained state (the
+    # model itself is left as it is), and the evaluations those steps took
+    Yd = torch.as_tensor(lm.get_Y(), device=dev)
+    runs = []
+    prof = profile(lambda: runs.append(trainer.train_adam(
+        lm._params_for_save(), Yd, lm.config, lm.layout,
+        TrainConfig(num_steps=LBFGS_PROFILE_STEPS, optimizer="lbfgs"),
+        opt_state=lm._opt_state, objective=lm._objective)), LBFGS_PROFILE_STEPS, "step")
+    entry = {"phase": "train_lbfgs", "Ny": lm.layout.Ny, "D": lm.D, "d": lm.d,
+             "steps": len(losses), "memory": lm._lbfgs_memory,
+             "steps_per_s": lg.last("steps_per_sec"),
+             "evals_per_step": lg.last("evals_per_step"),
+             "host_reads_per_step": lg.last("host_reads_per_step"),
+             "first_loss": float(losses[0]), "first_loss_f64_host": loss64,
+             "first_rel": first_rel, "final_loss": float(losses[-1]), "nonfinite": nonfinite,
+             "linesearch_steps_last": int(lm._opt_state.num_linesearch_steps),
+             "profiled": {"steps": LBFGS_PROFILE_STEPS,
+                          "evals_per_step": runs[-1].loss_evals / LBFGS_PROFILE_STEPS,
+                          "host_reads_per_step": runs[-1].host_reads / LBFGS_PROFILE_STEPS,
+                          "launches_per_step": prof["kernels_per_step"],
+                          "launches_per_eval": prof["kernels_per_step"] * LBFGS_PROFILE_STEPS
+                          / runs[-1].loss_evals,
+                          "wall_ms_per_step": prof["wall_ms_per_step"],
+                          "device_busy_share": prof["device_busy_share"]}}
+    if len(losses) != LBFGS_STEPS or nonfinite:
+        emit(entry)
+        raise AssertionError(f"train_lbfgs: {nonfinite} non-finite of {len(losses)} losses")
+    if not losses[-1] < losses[0]:
+        emit(entry)
+        raise AssertionError(f"train_lbfgs: last loss {losses[-1]} not below the first "
+                             f"{losses[0]}")
+    if not first_rel <= TRAIN_FIRST_RTOL:
+        emit(entry)
+        raise AssertionError(f"train_lbfgs: first loss {losses[0]} vs float64 {loss64}: "
+                             f"{first_rel:.2e} > {TRAIN_FIRST_RTOL}")
+    reset_launches()
+    rep = evaluate_pf_banked(lm, TRANSITIONS, q_seqs, q_labels, num_particles=N_PARTICLES,
+                             burn_in=5, seed=0, config=pfc)
+    lbfgs_launches = check_launches("train_lbfgs banked guard", T_pad)
+    emit({**entry, "banked_guard": {
+        "frame_acc": rep.frame_metrics["accuracy"], "frame_f1": rep.frame_metrics["f1"],
+        "trial_acc": rep.trial_metrics["accuracy"], "frames": rep.total_frames,
+        "banks": len(q_seqs), "particles_per_bank": N_PARTICLES, "padded_frames": T_pad,
+        "agg_fps": rep.fps, "launches": lbfgs_launches, "gated": False},
+        "asset_frame_acc": asset_guard["frame_acc"], "seconds": time.perf_counter() - t_phase,
+        "device": kind, "nvidia_smi": smi})
+    del lm, Yd, runs
+
+    _phase[0] = "lbfgs_resume"
+    check_precision("lbfgs_resume")
+    t_phase = time.perf_counter()
+    hourlongh_path = os.path.join(ROOT, "bench_assets", "bench_model_hourlongh.npz")
+    with np.load(hourlongh_path) as z:
+        file_meta = json.loads(bytes(z["meta_json"]).decode())
+        file_leaves = [z[f"opt_{i}"] for i in range(file_meta["n_opt_leaves"])]
+    t0 = time.perf_counter()
+    rm = GPMDM.load(hourlongh_path, device=dev)
+    load_s = time.perf_counter() - t0
+
+    def same_leaves(got, want):
+        return len(got) == len(want) and all(
+            a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+            for a, b in zip(got, want))
+
+    loaded_equal = same_leaves(rm._opt_state.to_numpy(), file_leaves)
+    stored_count = int(rm._opt_state.count)
+    # the float64 evaluation of the fp32 objective at the asset's parameters
+    hp = tsp.SparseParams(**{f: getattr(rm.params, f).detach().cpu().double()
+                             for f in tsp.SPARSE_PARAM_FIELDS})
+    with torch.no_grad():
+        host64 = float(tsp.sparse_nll(hp, torch.as_tensor(rm.get_Y()).double(), rm.config,
+                                      rm.layout))
+    torch.cuda.reset_peak_memory_stats()
+    lg = MetricLogger(stream=None)
+    t0 = time.perf_counter()
+    losses = np.asarray(rm.train_lbfgs(LBFGS_RESUME_STEPS, logger=lg))
+    train_s = time.perf_counter() - t0
+    count = int(rm._opt_state.count)
+    nonfinite = int(np.sum(~np.isfinite(losses)))
+    first_rel = abs(losses[0] - host64) / abs(host64)
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = os.path.join(tmp, "hourlongh_resumed.npz")
+        rm.save(saved)
+        with np.load(saved) as z:
+            saved_meta = json.loads(bytes(z["meta_json"]).decode())
+        again = GPMDM.load(saved, device=dev)
+        round_trip_equal = same_leaves(again._opt_state.to_numpy(), rm._opt_state.to_numpy())
+        del again
+    entry = {"phase": "lbfgs_resume", "Ny": rm.layout.Ny, "n_opt_leaves": len(file_leaves),
+             "loaded_leaves_equal": loaded_equal, "stored_count": stored_count,
+             "count": count, "steps": len(losses), "load_s": load_s, "train_s": train_s,
+             "steps_per_s": lg.last("steps_per_sec"),
+             "evals_per_step": lg.last("evals_per_step"),
+             "host_reads_per_step": lg.last("host_reads_per_step"),
+             "linesearch_steps_last": int(rm._opt_state.num_linesearch_steps),
+             "learning_rate_last": float(rm._opt_state.learning_rate),
+             "peak_gib": peak_gib(), "first_loss": float(losses[0]),
+             "first_loss_f64_of_f32_objective_host": host64, "first_rel": first_rel,
+             "final_loss": float(losses[-1]), "nonfinite": nonfinite,
+             "saved_optimizer": [saved_meta.get("optimizer_name"),
+                                 saved_meta.get("lbfgs_memory"),
+                                 saved_meta.get("n_opt_leaves")],
+             "round_trip_equal": round_trip_equal,
+             "seconds": time.perf_counter() - t_phase, "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    if len(file_leaves) != 57 or not loaded_equal:
+        raise AssertionError("lbfgs_resume: the loaded L-BFGS state differs from the file's "
+                             f"{len(file_leaves)} leaves")
+    if count != stored_count + LBFGS_RESUME_STEPS or nonfinite:
+        raise AssertionError(f"lbfgs_resume: count {count} (stored {stored_count}), "
+                             f"{nonfinite} non-finite losses")
+    if not first_rel <= TRAIN_FIRST_RTOL:
+        raise AssertionError(f"lbfgs_resume: first loss {losses[0]} vs the host's {host64}: "
+                             f"{first_rel:.2e} > {TRAIN_FIRST_RTOL}")
+    if not losses[-1] <= losses[0]:
+        raise AssertionError(f"lbfgs_resume: last loss {losses[-1]} above the first "
+                             f"{losses[0]}")
+    if entry["saved_optimizer"] != ["lbfgs", 10, 57] or not round_trip_equal:
+        raise AssertionError(f"lbfgs_resume: the saved state ({entry['saved_optimizer']}) "
+                             "did not load back leaf for leaf")
+    del rm
+    torch.cuda.empty_cache()
+
+    _phase[0] = "cli"
+    t_phase = time.perf_counter()
+    cli_tmp = tempfile.mkdtemp(prefix="gpmdm_cli_")
+    env = {k: v for k, v in os.environ.items() if k != "GPMDM_TPU_PLATFORM"}
+    trained, lbfgs_out = os.path.join(cli_tmp, "m.npz"), os.path.join(cli_tmp, "lbfgs.npz")
+    deployed, trace_dir = os.path.join(cli_tmp, "deployed.npz"), os.path.join(cli_tmp, "trace")
+    asset = os.path.join(ROOT, "bench_assets", "bench_model.npz")
+    cli_runs = {}
+
+    def cli_start(name, *args):
+        """``python -m gpmdm_tpu_torch *args`` with the platform pin unset:
+        on the card."""
+        proc = subprocess.Popen([sys.executable, "-m", "gpmdm_tpu_torch", *args], cwd=ROOT,
+                                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        _children.append(proc)
+        cli_runs[name] = {"argv": list(args), "proc": proc}
+
+    def cli_finish(name):
+        """Wait for run ``name`` and record it; a non-zero exit fails.  The
+        runs share the card, so only the phase's total seconds are kept."""
+        run = cli_runs[name]
+        proc = run.pop("proc")
+        out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+        run.update(rc=proc.returncode, stdout=out, stdout_tail=out[-600:],
+                   stderr_tail=err[-600:])
+        if run["rc"] != 0:
+            emit({"phase": "cli", "failed": name,
+                  **{k: v for k, v in run.items() if k != "stdout"}})
+            raise AssertionError(f"cli {name}: exit {run['rc']}")
+
+    try:
+        # each command starts as soon as the file it reads is written
+        cli_start("train", "train", "--out", trained, "--latent-dim", "2", "--steps", "60")
+        cli_start("train_lbfgs", "train", "--out", lbfgs_out, "--latent-dim", "2",
+                  "--optimizer", "lbfgs", "--steps", "10")
+        cli_start("eval_asset", "eval", asset, "--particles", "500", "--burn-in", "5")
+        cli_finish("train")
+        cli_start("eval_banked_trace", "eval", trained, "--banked", "--particles", "1000",
+                  "--trace", trace_dir)
+        cli_start("deploy", "deploy", trained, "--sparsify", "64", "--out", deployed)
+        cli_finish("deploy")
+        cli_start("rollout", "rollout", deployed, "--steps", "5")
+        for name in ("train_lbfgs", "eval_asset", "eval_banked_trace", "rollout"):
+            cli_finish(name)
+    finally:
+        for proc in _children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    summary = cli_runs["eval_asset"]["stdout"]
+    frame_acc = float(re.search(r"frames: acc=([0-9.]+)", summary).group(1))
+    trial_acc = float(re.search(r"trials: acc=([0-9.]+)", summary).group(1))
+    kernel_events = {}
+    for path in glob.glob(os.path.join(trace_dir, "*.json")):
+        with open(path) as f:
+            for e in json.load(f).get("traceEvents", []):
+                if e.get("cat") == "kernel":
+                    kernel_events[e["name"]] = kernel_events.get(e["name"], 0) + 1
+    traced = {k: sum(n for name, n in kernel_events.items() if re.search(pat, name))
+              for k, pat in TRACE_KERNELS.items()}
+    rollout_rows = len(cli_runs["rollout"]["stdout"].strip().splitlines())
+    entry = {"phase": "cli", "runs": {k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
+                                      for k, v in cli_runs.items()},
+             "eval_asset_frame_acc": frame_acc, "eval_asset_trial_acc": trial_acc,
+             "min_frame_acc": GUARD_MIN_FRAME_ACC, "traced_kernel_events": traced,
+             "rollout_rows": rollout_rows, "seconds": time.perf_counter() - t_phase,
+             "device": kind, "nvidia_smi": smi}
+    shutil.rmtree(cli_tmp, ignore_errors=True)
+    emit(entry)
+    if not frame_acc >= GUARD_MIN_FRAME_ACC:
+        raise AssertionError(f"cli: eval of bench_model.npz at frame accuracy {frame_acc} < "
+                             f"{GUARD_MIN_FRAME_ACC}")
+    if not all(traced.values()):
+        raise AssertionError(f"cli: the --trace of eval --banked lacks a kernel: {traced}")
+
     for k in kernels:
         n = k["name"]
         k["launches_by_phase"] = {"path": launches[n], "banked_guard": banked_launches[n],
@@ -1391,6 +1643,7 @@ def main(argv) -> int:
                                   "d4_banked_guard": d4[1][n], "c8_path": c8[0][n],
                                   "c8_banked_guard": c8[1][n], "train_guard": train_launches[n],
                                   "train_bc_guard": bc_launches[n],
+                                  "train_lbfgs_guard": lbfgs_launches[n],
                                   "compressed_path": comp_path_launches[n],
                                   "compressed_banked_guard": comp_guard_launches[n],
                                   **{k: v[n] for k, v in compressed_launches.items()},

@@ -121,9 +121,12 @@ class GPMDMConfig:
 class TrainConfig:
     """Optimizer configuration (reference ``train_adam`` arguments).
 
-    ``optimizer`` is 'adam' (the reference's, and the only one ported);
-    the trainer refuses any other.  ``print_every`` sets the chunk of
-    steps after which the host reads the losses (0: the whole run);
+    ``optimizer`` is 'adam' (the reference's) or 'lbfgs' (``optax.lbfgs``
+    with its zoom line search, ``train.lbfgs``; ``lr`` is ignored and
+    ``lbfgs_memory`` sets the memory of the two-loop recursion).  Each
+    L-BFGS step runs a line search of several loss evaluations, so far
+    fewer steps are needed than with Adam.  ``print_every`` sets the chunk
+    of steps after which the host reads the losses (0: the whole run);
     ``checkpoint_every`` writes a train-state snapshot to
     ``checkpoint_path`` each time that many steps have passed."""
 
@@ -134,6 +137,7 @@ class TrainConfig:
     checkpoint_every: int = 0
     checkpoint_path: str | None = None
     optimizer: str = "adam"
+    lbfgs_memory: int = 10
 
 
 @dataclasses.dataclass(frozen=True)

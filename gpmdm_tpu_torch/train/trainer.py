@@ -1,4 +1,4 @@
-"""MAP training of every GPMDM family with Adam.
+"""MAP training of every GPMDM family with Adam or L-BFGS.
 
 Counterpart of ``gpmdm_tpu/train/trainer.py``:
 
@@ -9,22 +9,33 @@ Counterpart of ``gpmdm_tpu/train/trainer.py``:
   It is not ``torch.optim.Adam``: the NaN freeze below must revert the
   moments and the count as well as the parameters, which an in-place
   optimizer cannot.
+- L-BFGS with the zoom line search (``TrainConfig(optimizer='lbfgs')``),
+  ``optax.lbfgs(memory_size)`` step for step (``train.lbfgs``; ``lr`` is
+  ignored).  The line search sees the unmasked loss and gradient, as the
+  JAX step gives it ``value_fn``; the direction is built from the masked
+  gradient, so frozen leaves never move.  It is not
+  ``torch.optim.LBFGS``, whose line search is another, and which cannot
+  revert its state on the freeze.
 - The model family's ``objective`` gives the trainability mask and the
   loss: :func:`exact_objective` (``core.nll``), :func:`sparse_objective`
   (``sparse.sparse_nll`` over ``SparseParams``) or the back-constrained
   model's ``back_constrained.bc_objective`` (W in the X slot).  The
-  parameters, the Adam moments and the masks are all of the parameters'
-  class.
+  parameters, the optimizer state and the masks are all over the
+  parameters' class.
 - Trainability flags and training modes are gradient masks that select,
   never multiply, so a non-finite gradient on a frozen leaf is dropped.
 - A step whose loss or (unfrozen) gradient is not finite keeps the
-  previous parameters, moments and count: one ``torch.where`` per leaf on
-  the device, the JAX package's freeze.
+  previous parameters and the whole optimizer state: for Adam one
+  ``torch.where`` per leaf on the device, the JAX package's freeze; for
+  L-BFGS, whose step reads the loss on the host anyway, the step returns
+  its inputs.
 
-The loss history stays on the device; the host reads it once a chunk of
-``print_every`` steps (the JAX package's ``lax.scan`` chunks), where the
-logging, checkpointing and the stop after a frozen step happen.
-L-BFGS is not ported.
+The Adam loss history stays on the device; the host reads it once a chunk
+of ``print_every`` steps (the JAX package's ``lax.scan`` chunks), where the
+logging, checkpointing and the stop after a frozen step happen.  An L-BFGS
+step decides its line search on the host (``train.lbfgs``): 1 + k loss and
+gradient evaluations and as many reads of two scalars for a search of k
+candidates.
 """
 
 from __future__ import annotations
@@ -40,6 +51,8 @@ import torch
 from ..config import GPMDMConfig, TrainConfig
 from ..models import core, sparse
 from ..ops.layout import DataLayout
+from . import lbfgs
+from .lbfgs import LBFGSState
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 _INT32_MAX = 2**31 - 1
@@ -209,45 +222,127 @@ def make_update_step(cfg: GPMDMConfig, layout: DataLayout, lr: float, balance: f
     return step
 
 
+def make_lbfgs_step(cfg: GPMDMConfig, layout: DataLayout, balance: float, mask,
+                    loss_fn: Callable | None = None, stats: dict | None = None) -> Callable:
+    """One L-BFGS step ``(params, opt_state, Y) -> (params, opt_state,
+    loss)``, the counterpart of the JAX package's ``make_lbfgs_step`` over
+    ``optax.lbfgs``: the loss and its gradient by autograd, the gradient
+    masked by ``mask``, the direction from the memory (``lbfgs.direction``)
+    and the zoom line search on the unmasked loss and gradient
+    (``lbfgs.zoom_linesearch``).  The loss returned is the one at the
+    step's start.  A step whose loss or masked gradient is not finite
+    returns its parameters and state as they were.  ``stats``, a dict with
+    the keys ``'evals'`` and ``'host_reads'`` when given, counts the
+    loss-and-gradient evaluations and the host reads."""
+    if loss_fn is None:
+        loss_fn = core.nll
+    counts = {"evals": 0, "host_reads": 0} if stats is None else stats
+    flags = _leaves(mask)
+
+    def step(params, state: LBFGSState, Y: torch.Tensor):
+        names, cls = _names(params), type(params)
+        shapes = [tuple(getattr(params, f).shape) for f in names]
+        x = lbfgs.flatten(params)
+        keep = None
+        if not all(m != 0 for m in flags):
+            keep = torch.cat([torch.full((int(np.prod(sh, dtype=np.int64)),), m != 0,
+                                         device=x.device) for sh, m in zip(shapes, flags)])
+
+        def value_and_grad(v):
+            with torch.enable_grad():
+                v = v.detach().requires_grad_(True)
+                loss = loss_fn(lbfgs.unflatten(v, cls, shapes), Y, cfg, layout, balance)
+                (g,) = torch.autograd.grad(loss, v, allow_unused=True)
+            counts["evals"] += 1
+            return loss.detach(), torch.zeros_like(v) if g is None else g
+
+        def read(*scalars):
+            counts["host_reads"] += 1
+            return torch.stack([t.to(x.dtype) for t in scalars]).cpu().numpy()
+
+        with torch.no_grad():
+            loss, g = value_and_grad(x)
+            if keep is not None:
+                g = torch.where(keep, g, torch.zeros_like(g))
+            u, dpm, dum, wm = lbfgs.direction(g, x, state)
+            ok, value0, slope0 = read(_finite_step(loss, [g]), loss, torch.dot(u, g))
+            if not ok:
+                return params, state, loss
+
+            def evaluate(stepsize):
+                value, grad = value_and_grad(x + u * float(stepsize))
+                value_h, slope = read(value, torch.dot(grad, u))
+                return value_h, grad, slope
+
+            ls = lbfgs.zoom_linesearch(evaluate, value0, slope0, g, value0.dtype)
+            tail = torch.tensor([ls.stepsize, ls.value, ls.decrease_error, ls.curvature_error],
+                                dtype=x.dtype, device=x.device)
+            new_state = LBFGSState(
+                count=torch.where(state.count < _INT32_MAX, state.count + 1, state.count),
+                params=x, updates=g, diff_params_memory=dpm, diff_updates_memory=dum,
+                weights_memory=wm, learning_rate=tail[0], value=tail[1], grad=ls.grad,
+                num_linesearch_steps=torch.tensor(ls.num_steps, dtype=torch.int32,
+                                                  device=x.device),
+                decrease_error=tail[2], curvature_error=tail[3], param_cls=cls,
+                shapes=tuple(shapes))
+            new_params = lbfgs.unflatten(x + u * float(ls.stepsize), cls, shapes)
+        return new_params, new_state, loss
+
+    return step
+
+
 @dataclasses.dataclass
 class TrainResult:
     params: object  # the class of the parameters trained
-    opt_state: AdamState
+    opt_state: object  # AdamState or LBFGSState
     losses: torch.Tensor  # (steps run,) on the parameters' device
     wall_time_s: float
     steps_per_sec: float
+    loss_evals: int = 0  # loss-and-gradient evaluations
+    host_reads: int = 0  # reads of device values by the host
 
 
 def train_adam(params, Y, cfg: GPMDMConfig, layout: DataLayout,
                train_cfg: TrainConfig = TrainConfig(), mode: str = "all",
-               opt_state: AdamState | None = None,
-               log_fn: Callable[[int, float, float], None] | None = None,
+               opt_state=None, log_fn: Callable[[int, float, float], None] | None = None,
                objective: Callable = exact_objective, logger=None) -> TrainResult:
-    """Run Adam for ``train_cfg.num_steps`` steps on the parameters' device
+    """Run ``train_cfg.num_steps`` steps of ``train_cfg.optimizer`` ('adam'
+    or 'lbfgs', the JAX package's name for both) on the parameters' device
     (reference train_adam).  ``objective`` is the model family's (the JAX
     package's ``kind``): :func:`exact_objective` over ``GPMDMParams``,
     :func:`sparse_objective` over ``SparseParams``, or
     ``back_constrained.bc_objective`` over ``GPMDMParams`` with W in the X
-    slot.
+    slot.  ``opt_state`` resumes an ``AdamState`` or an ``LBFGSState`` (of
+    ``train_cfg.lbfgs_memory``) over the parameters' class; one of another
+    optimizer or class raises ``ValueError``.
 
     Steps run in chunks of ``print_every`` (the whole run when 0, and at
     most ``checkpoint_every``); after each chunk the host reads its losses
-    once, calls ``log_fn(step, loss, seconds)``, logs loss and steps/s to
-    ``logger`` (a ``utils.logging.MetricLogger``), writes a train-state
-    snapshot whenever a ``checkpoint_every`` boundary was crossed, and
-    stops if the chunk's last loss is not finite (the parameters are then
-    frozen).  Returns the parameters, the Adam state and the per-step loss
-    history."""
-    if train_cfg.optimizer != "adam":
-        raise NotImplementedError(
-            f"optimizer {train_cfg.optimizer!r} is not ported to gpmdm_tpu_torch yet "
-            "(ROADMAP A.1b: L-BFGS and the orbax checkpoints)")
+    once, calls ``log_fn(step, loss, seconds)``, logs loss and steps/s (and
+    for L-BFGS the evaluations a step) to ``logger`` (a
+    ``utils.logging.MetricLogger``), writes a train-state snapshot whenever
+    a ``checkpoint_every`` boundary was crossed, and stops if the chunk's
+    last loss is not finite (the parameters are then frozen).  Returns the
+    parameters, the optimizer state, the per-step loss history and the
+    counts of evaluations and host reads."""
     device = params.X.device
-    if opt_state is None:
-        opt_state = AdamState.init(params)
-    elif not isinstance(opt_state, AdamState) or type(opt_state.mu) is not type(params):
-        raise ValueError(f"opt_state is not an Adam state over {type(params).__name__}; "
-                         "pass opt_state=None to start fresh")
+    stats = {"evals": 0, "host_reads": 0}
+    if train_cfg.optimizer == "adam":
+        if opt_state is None:
+            opt_state = AdamState.init(params)
+        elif not isinstance(opt_state, AdamState) or type(opt_state.mu) is not type(params):
+            raise ValueError(f"opt_state is not an Adam state over {type(params).__name__}; "
+                             "pass opt_state=None to start fresh")
+    elif train_cfg.optimizer == "lbfgs":
+        if opt_state is None:
+            opt_state = LBFGSState.init(params, train_cfg.lbfgs_memory)
+        elif (not isinstance(opt_state, LBFGSState) or not opt_state.matches(params)
+              or opt_state.memory_size != train_cfg.lbfgs_memory):
+            raise ValueError(f"opt_state is not an L-BFGS state of memory "
+                             f"{train_cfg.lbfgs_memory} over these {type(params).__name__}; "
+                             "pass opt_state=None to start fresh")
+    else:
+        raise ValueError(f"unknown optimizer {train_cfg.optimizer!r}")
 
     chunk = train_cfg.print_every if train_cfg.print_every > 0 else train_cfg.num_steps
     if train_cfg.checkpoint_every > 0:
@@ -258,8 +353,11 @@ def train_adam(params, Y, cfg: GPMDMConfig, layout: DataLayout,
         Y = torch.as_tensor(np.asarray(Y))
     Y = Y.to(device=device, dtype=cfg.torch_dtype)
     mask, loss_fn = objective(cfg, mode, Y, layout)
-    step = make_update_step(cfg, layout.to(device), train_cfg.lr, train_cfg.balance, mask,
-                            loss_fn)
+    if train_cfg.optimizer == "lbfgs":
+        step = make_lbfgs_step(cfg, layout.to(device), train_cfg.balance, mask, loss_fn, stats)
+    else:
+        step = make_update_step(cfg, layout.to(device), train_cfg.lr, train_cfg.balance, mask,
+                                loss_fn)
     t0 = time.perf_counter()
     all_losses: List[torch.Tensor] = []
     done = 0
@@ -271,13 +369,18 @@ def train_adam(params, Y, cfg: GPMDMConfig, layout: DataLayout,
             chunk_losses.append(loss)
         losses = torch.stack(chunk_losses)
         last = float(losses[-1])  # the host's one read of the chunk
+        stats["host_reads"] += 1
         all_losses.append(losses)
         done += n
         if log_fn is not None:
             log_fn(done, last, time.perf_counter() - t0)
         if logger is not None:
             wall = time.perf_counter() - t0
-            logger.log(step=done, loss=last, steps_per_sec=done / wall if wall > 0 else 0.0)
+            extra = ({"evals_per_step": stats["evals"] / done,
+                      "host_reads_per_step": stats["host_reads"] / done}
+                     if train_cfg.optimizer == "lbfgs" else {})
+            logger.log(step=done, loss=last, steps_per_sec=done / wall if wall > 0 else 0.0,
+                       **extra)
         if (train_cfg.checkpoint_every > 0 and train_cfg.checkpoint_path
                 and done // train_cfg.checkpoint_every
                 > (done - n) // train_cfg.checkpoint_every):
@@ -290,4 +393,6 @@ def train_adam(params, Y, cfg: GPMDMConfig, layout: DataLayout,
     wall = time.perf_counter() - t0
     losses = torch.cat(all_losses) if all_losses else torch.zeros(0, device=device)
     return TrainResult(params=params, opt_state=opt_state, losses=losses, wall_time_s=wall,
-                       steps_per_sec=done / wall if wall > 0 else float("inf"))
+                       steps_per_sec=done / wall if wall > 0 else float("inf"),
+                       loss_evals=stats["evals"] if train_cfg.optimizer == "lbfgs" else done,
+                       host_reads=stats["host_reads"])

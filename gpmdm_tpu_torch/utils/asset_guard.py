@@ -2,10 +2,10 @@
 wrote the committed assets' guard receipts, for the port.
 
 Counterpart of ``gpmdm_tpu/utils/asset_guard.py`` (``SHAPES``,
-``guard_trials``, ``params_fingerprint``; ``guard_report`` returns the
-whole report, whose frame accuracy and F1 are the JAX package's
-``guard_score``): synthetic trials from the generator configuration each
-asset was trained on, streamed through
+``guard_trials``, ``guard_score``, ``params_fingerprint``, ``make_receipt``,
+``load_asset``; ``guard_report`` returns the whole report, whose frame
+accuracy and F1 ``guard_score`` returns): synthetic trials from the
+generator configuration each asset was trained on, streamed through
 :func:`gpmdm_tpu_torch.utils.metrics.evaluate_pf_banked`.
 The same trials and the same fingerprint as the JAX package's, so a score
 on the card sits beside the receipt a checkpoint carries
@@ -73,6 +73,14 @@ def guard_report(model, config_name: str, particles: int = 500, posterior=None,
         posterior=posterior)
 
 
+def guard_score(model, config_name: str, particles: int = 500, posterior=None,
+                seed: int = 0):
+    """(frame accuracy, frame F1) of ``model`` under the guard protocol:
+    :func:`guard_report`'s, as the JAX package's ``guard_score``."""
+    rep = guard_report(model, config_name, particles, posterior=posterior, seed=seed)
+    return rep.frame_metrics["accuracy"], rep.frame_metrics["f1"]
+
+
 def params_fingerprint(params) -> str:
     """sha256 over the parameters in field order (name, shape, bytes) of a
     ``GPMDMParams`` or a ``SparseParams``: the JAX package's fingerprint,
@@ -85,3 +93,27 @@ def params_fingerprint(params) -> str:
         h.update(str(leaf.shape).encode())
         h.update(np.ascontiguousarray(leaf).tobytes())
     return h.hexdigest()
+
+
+def make_receipt(model, config_name: str, particles: int, acc: float, f1: float) -> dict:
+    """A guard receipt for ``model._guard_receipt`` (written to the
+    checkpoint's meta by ``utils.io.save_model``), the JAX package's keys:
+    ``platform`` is where the model's parameters live, ``'gpu'`` on a CUDA
+    card and ``'cpu'`` otherwise.  The committed assets' receipts are the
+    JAX package's and stay as they are."""
+    return {
+        "platform": "gpu" if model.params.X.device.type == "cuda" else "cpu",
+        "config": config_name,
+        "particles": int(particles),
+        "frame_acc": round(float(acc), 4),
+        "frame_f1": round(float(f1), 4),
+        "params_sha256": params_fingerprint(model.params),
+    }
+
+
+def load_asset(path, device="cuda"):
+    """Load a bench asset onto ``device`` as the class its meta's
+    ``model_class`` names (``GPMDM``, ``SparseGPMDM`` or ``BCGPMDM``)."""
+    from .io import load_model
+
+    return load_model(path, device)

@@ -5,23 +5,27 @@ A checkpoint holds the config and the constructor's initial
 hyperparameters as JSON (``meta_json``), the model class (``'GPMDM'``,
 ``'SparseGPMDM'`` with ``n_inducing_*``, or ``'BCGPMDM'``), the trained
 parameters (``param_<field>``; a back-constrained model's W in the X
-slot), the raw observation sequences (``obs_<class>_<i>``), the Adam
-state (``opt_<i>``, optax's leaf order: count, then the first and second
-moments in the parameters' field order), the compressed-posterior cache
+slot), the raw observation sequences (``obs_<class>_<i>``), the optimizer
+state (``opt_<i>`` in optax's leaf order, with ``optimizer_name`` and
+``lbfgs_memory`` in the meta: Adam's count, then its first and second
+moments in the parameters' field order; or ``optax.lbfgs``'s 5 n + 7
+leaves, ``train.lbfgs.LBFGSState``), the compressed-posterior cache
 (``comp_<j>_<field>``, keyed by ``compressed_keys`` and
 ``compressed_entry_idx`` in the meta), the sparsified cache
 (``sparsified_<j>_<field>``, keyed by ``sparsified_keys`` and
 ``sparsified_entry_idx``), a sparse model's own posterior
 (``post_<field>``, with ``posterior_class``), the deployment
 recommendation and the guard receipt.  Either package reads what the
-other writes, and training of every family resumes from the saved Adam
-state.  Loading defers the exact posterior's float64 factorization to its
+other writes, and training of every family resumes from the saved Adam or
+L-BFGS state; its integer leaves stay int32.  Loading defers the exact posterior's float64 factorization to its
 first use, so a deployment served from a persisted cache never builds it;
 a sparse model's posterior comes from its ``post_*`` arrays, or from an
 O(N M^2) host build; a back-constrained model rematerializes X = K_b W
-and builds its exact posterior at once, as the JAX package does.  An
-L-BFGS state is not read: the port does not train with L-BFGS yet
-(ROADMAP A.1b).
+and builds its exact posterior at once, as the JAX package does.
+
+``load_model`` takes the port's call ``load_model(file_path, device)`` and
+the JAX package's ``load_model(cls, file_path, device=...)``, whose class
+the checkpoint's ``model_class`` overrides, as there.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from ..models.back_constrained import BCGPMDM
 from ..models.compressed import CompressedPosterior
 from ..models.gpmdm import GPMDM, params_from_numpy
 from ..models.sparse_gpmdm import SparseGPMDM
-from ..train.trainer import AdamState
+from ..train.trainer import AdamState, LBFGSState
 
 FORMAT_VERSION = 1
 
@@ -98,7 +102,8 @@ def save_model(model: GPMDM, file_path) -> None:
         "n_sequences_per_class": [len(s) for s in model.class_aware_observations_list],
         "initialized": model.params is not None,
         "has_opt_state": model._opt_state is not None,
-        "optimizer_name": "adam",
+        "optimizer_name": model._opt_name,
+        "lbfgs_memory": model._lbfgs_memory,
         "init_hypers": {k: (v.tolist() if isinstance(v, np.ndarray) else v)
                         for k, v in model._init_hypers.items()},
     }
@@ -145,13 +150,26 @@ def save_model(model: GPMDM, file_path) -> None:
             os.replace(written, file_path)
 
 
-def load_model(file_path, device="cuda") -> GPMDM:
+def load_model(*args, device="cuda") -> GPMDM:
     """Load a ``GPMDM``, ``SparseGPMDM`` or ``BCGPMDM`` checkpoint onto
-    ``device``, with its Adam state when it has one: an exact model with
-    the exact posterior built at its first use, a sparse model with its
-    persisted posterior (or one built on the host now), a back-constrained
-    model with X = K_b W rematerialized and its exact posterior built; each
-    with its compressed and sparsified caches."""
+    ``device``, with its Adam or L-BFGS state when it has one: an exact
+    model with the exact posterior built at its first use, a sparse model
+    with its persisted posterior (or one built on the host now), a
+    back-constrained model with X = K_b W rematerialized and its exact
+    posterior built; each with its compressed and sparsified caches.
+
+    Called as ``load_model(file_path, device)`` or, as the JAX package's
+    is, ``load_model(cls, file_path, device=...)``: the class a checkpoint
+    loads as is its ``model_class``, whatever ``cls`` says."""
+    if len(args) == 2 and isinstance(args[0], type):
+        file_path = args[1]
+    elif len(args) in (1, 2):
+        file_path = args[0]
+        if len(args) == 2:
+            device = args[1]
+    else:
+        raise TypeError("load_model(file_path, device='cuda') or "
+                        "load_model(cls, file_path, device='cuda')")
     file_path = Path(file_path)
     with np.load(file_path) as data:
         meta = json.loads(bytes(data["meta_json"]).decode("utf-8"))
@@ -183,7 +201,10 @@ def load_model(file_path, device="cuda") -> GPMDM:
                 model.add_data(data[f"obs_{c}_{i}"], c)
         host_params = {f: np.asarray(data[f"param_{f}"], dtype=np.float64) for f in fields}
         opt_leaves = None
-        if meta.get("has_opt_state") and meta.get("optimizer_name", "adam") == "adam":
+        opt_name = meta.get("optimizer_name", "adam")
+        if meta.get("has_opt_state"):
+            if opt_name not in ("adam", "lbfgs"):
+                raise ValueError(f"{file_path}: unknown optimizer_name {opt_name!r}")
             opt_leaves = [data[f"opt_{i}"] for i in range(meta["n_opt_leaves"])]
         post_arrays = None
         if meta.get("posterior_class") == "SparsePosterior":
@@ -215,8 +236,11 @@ def load_model(file_path, device="cuda") -> GPMDM:
     model._deploy_recommendation = meta.get("deploy_recommendation") or None
     model._guard_receipt = meta.get("guard_receipt") or None
     if opt_leaves is not None:
-        model._opt_state = AdamState.from_numpy(opt_leaves, model.dtype, model.device,
+        state_cls = LBFGSState if opt_name == "lbfgs" else AdamState
+        model._opt_state = state_cls.from_numpy(opt_leaves, model.dtype, model.device,
                                                 type(model.params))
+        model._opt_name = opt_name
+        model._lbfgs_memory = int(meta.get("lbfgs_memory", 10))
     return model
 
 

@@ -81,11 +81,12 @@ def test_sparse_assets_load_like_jax(name):
     _assert_same(tm.posterior, jm.posterior, tsp.POSTERIOR_FIELDS)
     assert tm._guard_receipt == jm._guard_receipt
     assert jm._opt_state is not None
-    if name == "hourlongh":  # an L-BFGS state, not read (ROADMAP A.1b)
-        assert tm._opt_state is None
-    else:
-        for a, b in zip(tm._opt_state.to_numpy(), jax.tree.leaves(jm._opt_state)):
-            np.testing.assert_array_equal(a, np.asarray(b))
+    # Adam's 21 leaves, or hourlongh's L-BFGS 57 (tests/test_torch_lbfgs.py)
+    assert tm._opt_name == jm._opt_name
+    tleaves = tm._opt_state.to_numpy()
+    assert len(tleaves) == len(jax.tree.leaves(jm._opt_state))
+    for a, b in zip(tleaves, jax.tree.leaves(jm._opt_state)):
+        np.testing.assert_array_equal(a, np.asarray(b))
     assert tm._compressed_cache == {} and tm._sparsified_cache == {}
 
 

@@ -212,9 +212,11 @@ def test_divergent_lr_freezes_and_stops():
 
 
 def test_unported_optimizer_raises():
+    """'adam' and 'lbfgs' are the optimizers (tests/test_torch_lbfgs.py);
+    any other name raises ValueError, as in the JAX trainer."""
     m = _model(GPMDM)
-    with pytest.raises(NotImplementedError, match="A.1b"):
-        m.train_adam(num_opt_steps=2, optimizer="lbfgs")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        m.train_adam(num_opt_steps=2, optimizer="sgd")
 
 
 # ------------------------------------------------------ resume / checkpoints
