@@ -199,6 +199,43 @@ Phases, each printing one JSON line on stdout:
              the asset's frame accuracy must reach 0.90, and the trace
              must name K1 (x_onepass or posterior_core<TP, 1>), K2
              (posterior_core<TP, 2>) and K3 (resample_rank_kernel).
+18. sharded_bank - the distribution layer (gpmdm_tpu_torch.parallel) over
+             NCCL: one process group of world 1 on cuda:0 (started here,
+             torn down after sharded_predict), a ``dp`` mesh of one rank.
+             evaluate_pf_banked(mesh=...) on the banked guard's 12 trials
+             (P = 10,000, padded to 64 frames): frame accuracy >= 0.90,
+             exactly 64 launches of each of K1, K2 and K3, one all-gather
+             (after the scan) and the predictions of the unsharded guard
+             with the same seed; aggregate frames/s beside banked_guard's
+             and the unsharded call's.  pf_scan_bank_sharded over the fleet
+             (64 x 1,000 x 64 frames) on injected noise: no collective in
+             the scan, 64 launches of each kernel, and the readouts of
+             pf_scan_bank on the same noise within the unsharded path's own
+             run-to-run difference (0 when the kernels are deterministic);
+             aggregate frames/s, best of 4, beside the fleet phase's and
+             pf_scan_bank's (best of 4, the two alternating).  A group's
+             NCCL communicator starts at its first collective, timed apart
+             (first_collectives_s) before any rate.
+19. sharded_train - bench_model_c8n5120.npz (C = 8, D = 10, d = 3, Ny =
+             5,120, f32, with its Adam state) on make_train_mesh: (ep, tp) =
+             (1, 1).  Both loss forms (replicated Cholesky; shard_chol, the
+             distributed Cholesky): in float64 the loss within 1e-9 relative
+             of core.nll and every gradient leaf within 1e-7 of its max
+             magnitude (autograd of core.nll); in fp32 the loss within 1e-4
+             of the unsharded fp32 loss; 5 train_adam_sharded steps from the
+             asset's Adam state, each loss finite and within 1e-4 of the
+             unsharded train_adam's at the same step; the collectives of a
+             step equal the table pinned in tests/test_torch_parallel.py.
+             Steps/s of all three.
+20. sharded_predict - n5120's exact posterior (built in large_n):
+             predict_y_rowsharded and predict_x_all_classes_rowsharded at P =
+             10,000 (its initial cloud), cast to float64 on the card, within
+             1e-9 x each output's median magnitude of core.predict_y /
+             predict_x_all_classes in float64; the fp32 gaps reported, not
+             gated (the quad's cancellation, ROADMAP C3).
+             Each of these phases prints the backend, the world, NCCL's
+             version and its seconds; at world 1 a collective is a copy on
+             the card, so no collective's cost is measured.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -623,6 +660,8 @@ def main(argv) -> int:
         for i, rows, entry in checks:
             entry.update(asset=label, rows=rows, shape=[1, xl.shape[0]])
             kernels[i]["large_n"].append(entry)
+        if label == "n5120":  # its exact posterior serves sharded_predict too
+            n5120 = (m, xl)
         del m, pst, prm, xl, checks
         torch.cuda.empty_cache()
     emit({"phase": "large_n", "kernels": [
@@ -1636,6 +1675,13 @@ def main(argv) -> int:
     if not all(traced.values()):
         raise AssertionError(f"cli: the --trace of eval --banked lacks a kernel: {traced}")
 
+    sharded_launches = sharded_phases(dev, kind, smi, model, pfc, q_seqs, q_labels, Z,
+                                      reset_launches, check_launches,
+                                      {"banked_guard": asset_guard["agg_fps"],
+                                       "fleet": FLEET_BANKS * FLEET_FRAMES / min(fleet_walls)},
+                                      n5120)
+    del n5120
+
     for k in kernels:
         n = k["name"]
         k["launches_by_phase"] = {"path": launches[n], "banked_guard": banked_launches[n],
@@ -1647,7 +1693,8 @@ def main(argv) -> int:
                                   "compressed_path": comp_path_launches[n],
                                   "compressed_banked_guard": comp_guard_launches[n],
                                   **{k: v[n] for k, v in compressed_launches.items()},
-                                  **{k: v[n] for k, v in sparse_launches.items()}}
+                                  **{k: v[n] for k, v in sparse_launches.items()},
+                                  **{k: v[n] for k, v in sharded_launches.items()}}
 
     _phase[0] = "report"
     heavy = ("path_inputs", "conditioned_inputs")
@@ -1659,6 +1706,244 @@ def main(argv) -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def sharded_phases(dev, kind, smi, model, pfc, q_seqs, q_labels, Z, reset_launches,
+                   check_launches, rates, n5120):
+    """The distribution layer (gpmdm_tpu_torch.parallel) over NCCL: one
+    process group of world 1 on cuda:0, started here and torn down at the
+    end.  Returns the launch counts of the sharded_bank phase by path."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gpmdm_tpu_torch import GPMDM, PFConfig, TrainConfig
+    from gpmdm_tpu_torch import parallel as par
+    from gpmdm_tpu_torch.filter import particle_filter as pf
+    from gpmdm_tpu_torch.models import core
+    from gpmdm_tpu_torch.parallel import collectives
+    from gpmdm_tpu_torch.parallel import sharded as SH
+    from gpmdm_tpu_torch.train import trainer
+    from gpmdm_tpu_torch.utils.metrics import evaluate_pf_banked
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    _phase[0] = "sharded_bank"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    par.init_distributed()  # NCCL on cuda:LOCAL_RANK, LOCAL_RANK unset: cuda:0
+    nccl = torch.cuda.nccl.version()
+    group = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+             "nccl": ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl),
+             "init_s": time.perf_counter() - t0}
+    if group["backend"] != "nccl" or group["world"] != 1:
+        raise AssertionError(f"sharded phases: process group {group}")
+    dp = par.make_mesh({"dp": 1})
+    # a group's NCCL communicator starts at its first collective: start the
+    # dp group's here, timed, so that no rate below includes it
+    t0 = time.perf_counter()
+    collectives.all_reduce(torch.zeros(1, device=dev), dist.group.WORLD)
+    collectives.all_reduce(torch.zeros(1, device=dev), dp.get_group("dp"))
+    torch.cuda.synchronize()
+    group["first_collectives_s"] = time.perf_counter() - t0
+    offsets = model.layout.y_class_offsets
+    post, params, cfg = model.posterior, model.params, model.config
+    log_T = torch.log(torch.tensor(TRANSITIONS, device=dev, dtype=model.dtype))
+    launches = {}
+
+    # the guard's 12 trials through evaluate_pf_banked(mesh=...), beside the
+    # unsharded call with the same seed
+    T_pad = pf.bucket_length(max(len(q) for q in q_seqs))
+    kw = dict(num_particles=N_PARTICLES, burn_in=5, seed=0, config=pfc)
+    reset_launches()
+    before = collectives.COUNTS.copy()
+    rep = evaluate_pf_banked(model, TRANSITIONS, q_seqs, q_labels, mesh=dp, **kw)
+    guard_collectives = dict(collectives.COUNTS - before)
+    launches["sharded_bank_guard"] = check_launches("sharded_bank guard", T_pad)
+    plain = evaluate_pf_banked(model, TRANSITIONS, q_seqs, q_labels, **kw)
+    same_preds = all(np.array_equal(a, b) for a, b in
+                     zip(rep.frame_predictions, plain.frame_predictions))
+    acc = rep.frame_metrics["accuracy"]
+    guard = {"frame_acc": acc, "frame_f1": rep.frame_metrics["f1"], "banks": len(q_seqs),
+             "particles_per_bank": N_PARTICLES, "padded_frames": T_pad,
+             "agg_fps": rep.fps, "banked_guard_agg_fps": rates["banked_guard"],
+             "unsharded_agg_fps": plain.fps, "launches": launches["sharded_bank_guard"],
+             "collectives": guard_collectives, "predictions_equal_unsharded": same_preds}
+
+    # the fleet: equal to pf_scan_bank on the same injected noise, then timed
+    cfg_f = PFConfig(num_particles=FLEET_PARTICLES, pallas="on")
+    Zf = Z[None, :FLEET_FRAMES].expand(FLEET_BANKS, FLEET_FRAMES, model.D)
+    g = torch.Generator(device=dev).manual_seed(1)
+    st = pf.pf_init_bank(post, offsets, g, cfg_f, FLEET_BANKS)
+    frames = [pf.draw_noise(FLEET_BANKS, FLEET_PARTICLES, cfg.d, g, model.dtype, dev)
+              for _ in range(FLEET_FRAMES)]
+    noise = pf.PFNoise(**{f: torch.stack([getattr(n, f) for n in frames])
+                          for f in ("u_trans", "eps_dyn", "u_res")})
+    scan_collectives = par.count_collectives(
+        par.pf_scan_bank_sharded, st, Zf, post, params, log_T, cfg, cfg_f, dp, noise=noise)
+    reset_launches()
+    _, sharded = par.pf_scan_bank_sharded(st, Zf, post, params, log_T, cfg, cfg_f, dp,
+                                          noise=noise, gather=True)
+    launches["sharded_fleet"] = check_launches("sharded_bank fleet", FLEET_FRAMES)
+    _, ref = pf.pf_scan_bank(st, Zf, post, params, log_T, cfg, cfg_f, noise=noise)
+    _, ref2 = pf.pf_scan_bank(st, Zf, post, params, log_T, cfg, cfg_f, noise=noise)
+    diff = {f: float((getattr(sharded, f).double() - getattr(ref, f).double()).abs().max())
+            for f in ("class_probs", "log_likelihood", "state_mean")}
+    run_to_run = {f: float((getattr(ref2, f).double() - getattr(ref, f).double()).abs().max())
+                  for f in diff}
+    same_mlc = bool(torch.equal(sharded.most_likely_class, ref.most_likely_class))
+
+    def run_fleet(sharded):
+        """One timed fleet run from seed 1 (the fleet phase's), sharded or
+        through pf_scan_bank; 64 launches of each kernel either way."""
+        gg = torch.Generator(device=dev).manual_seed(1)
+        s0 = pf.pf_init_bank(post, offsets, gg, cfg_f, FLEET_BANKS)
+        reset_launches()
+        wall, _ = sync_time(lambda: par.pf_scan_bank_sharded(
+            s0, Zf, post, params, log_T, cfg, cfg_f, dp, generator=gg, gather=True)
+            if sharded else pf.pf_scan_bank(s0, Zf, post, params, log_T, cfg, cfg_f,
+                                            generator=gg))
+        check_launches("sharded_bank fleet", FLEET_FRAMES)
+        return wall
+
+    # sharded and unsharded alternate, so that both see the same card
+    walls, plain_walls = [], []
+    for sharded in (True, False, False, True) * (TIMED_RUNS // 2):
+        (walls if sharded else plain_walls).append(run_fleet(sharded))
+    fleet = {"banks": FLEET_BANKS, "particles_per_bank": FLEET_PARTICLES,
+             "frames": FLEET_FRAMES, "agg_fps": FLEET_BANKS * FLEET_FRAMES / min(walls),
+             "walls_s": walls, "fleet_agg_fps": rates["fleet"],
+             "unsharded_agg_fps": FLEET_BANKS * FLEET_FRAMES / min(plain_walls),
+             "unsharded_walls_s": plain_walls,
+             "launches": launches["sharded_fleet"], "scan_collectives": scan_collectives,
+             "max_abs_diff": diff, "unsharded_run_to_run": run_to_run,
+             "most_likely_class_equal": same_mlc}
+    emit({"phase": "sharded_bank", **group, "guard": guard, "fleet": fleet,
+          "seconds": time.perf_counter() - t_phase, "device": kind, "nvidia_smi": smi})
+    if not acc >= GUARD_MIN_FRAME_ACC:
+        raise AssertionError(f"sharded_bank: guard frame accuracy {acc} < {GUARD_MIN_FRAME_ACC}")
+    if not same_preds or guard_collectives != {"all_gather": 1}:
+        raise AssertionError("sharded_bank: the guard's predictions differ from the unsharded "
+                             f"guard's, or its collectives {guard_collectives} are not one gather")
+    if scan_collectives != {} or not same_mlc or any(diff[f] > run_to_run[f] for f in diff):
+        raise AssertionError(f"sharded_bank: the fleet scan made collectives {scan_collectives} "
+                             f"or differs from pf_scan_bank by {diff} (run to run {run_to_run})")
+
+    _phase[0] = "sharded_train"
+    t_phase = time.perf_counter()
+    m8 = GPMDM.load(os.path.join(ROOT, "bench_assets", "bench_model_c8n5120.npz"), device=dev)
+    mesh = par.make_train_mesh(n_classes=m8.n_classes)
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    Y8 = torch.as_tensor(m8.get_Y(), device=dev)
+    lay = m8.layout.to(dev)
+
+    def value_and_grad(p, cfg_, Y_):
+        leaves = [getattr(p, f).detach().requires_grad_(True) for f in core.PARAM_FIELDS]
+        with torch.enable_grad():
+            loss = core.nll(core.GPMDMParams(*leaves), Y_, cfg_, lay)
+            grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), grads
+
+    # float64: both forms against core.nll with autograd
+    cfg64 = m8.config.replace(dtype="float64")
+    p64 = core.GPMDMParams(**{f: getattr(m8.params, f).double() for f in core.PARAM_FIELDS})
+    ref64, gref64 = value_and_grad(p64, cfg64, Y8.double())
+    forms = {}
+    for sc in (False, True):
+        ctx = SH.make_context(cfg64, m8.layout, mesh, shard_chol=sc)
+        loss, grads = SH.nll_sharded_value_and_grad(p64, SH.pad_Y(Y8.double(), ctx), ctx)
+        forms["shard_chol" if sc else "replicated"] = {
+            "f64_loss": float(loss), "f64_rel": abs(float(loss) - ref64) / abs(ref64),
+            "f64_grad_rel": {f: float((a - b).abs().max() / b.abs().max())
+                             for f, a, b in zip(core.PARAM_FIELDS, grads, gref64)}}
+    # fp32: both forms against the unsharded fp32 loss
+    ref32 = value_and_grad(m8.params, m8.config, Y8)[0]
+    tc = TrainConfig(num_steps=5, lr=TRAIN_LR)
+    wall, res = sync_time(lambda: trainer.train_adam(m8.params, Y8, m8.config, m8.layout, tc,
+                                                     opt_state=m8._opt_state))
+    unsharded = res.losses.cpu().numpy()
+    train = {"unsharded": {"losses": unsharded.tolist(), "steps_per_s": tc.num_steps / wall}}
+    for sc in (False, True):
+        name = "shard_chol" if sc else "replicated"
+        ctx = SH.make_context(m8.config, m8.layout, mesh, shard_chol=sc)
+        loss = float(SH.nll_sharded(m8.params, SH.pad_Y(Y8, ctx), ctx))
+        forms[name].update(f32_loss=loss, f32_rel=abs(loss - ref32) / abs(ref32),
+                           f32_rel_to_f64=abs(loss - ref64) / abs(ref64))
+        step = SH.make_sharded_update_step(ctx, TRAIN_LR, 1.0, trainer.trainable_mask(m8.config))
+        counts = par.count_collectives(step, m8.params, m8._opt_state, SH.pad_Y(Y8, ctx))
+        wall, (_, st8, losses) = sync_time(lambda: par.train_adam_sharded(
+            m8.params, Y8, m8.config, m8.layout, mesh, tc, opt_state=m8._opt_state,
+            shard_chol=sc))
+        losses = losses.cpu().numpy()
+        train[name] = {"losses": losses.tolist(), "steps_per_s": tc.num_steps / wall,
+                       "count": int(st8.count), "collectives_a_step": counts,
+                       "max_rel_to_unsharded": float(np.max(np.abs(losses - unsharded)
+                                                            / np.abs(unsharded)))}
+    pinned = {"replicated": {"psum": 1},
+              "shard_chol": {"all_gather": shape["tp"] + 3, "pbroadcast": 2 * shape["tp"],
+                             "psum": 1}}
+    emit({"phase": "sharded_train", **group, "asset": "bench_model_c8n5120.npz",
+          "Ny": m8.layout.Ny, "classes": m8.n_classes, "mesh": shape, "f64_loss": ref64,
+          "f32_loss": ref32, "forms": forms, "train": train,
+          "unsharded_f32_rel_to_f64": abs(ref32 - ref64) / abs(ref64),
+          "seconds": time.perf_counter() - t_phase, "device": kind, "nvidia_smi": smi})
+    for name, f in forms.items():
+        if not (f["f64_rel"] <= 1e-9 and max(f["f64_grad_rel"].values()) <= 1e-7):
+            raise AssertionError(f"sharded_train {name}: float64 loss {f['f64_rel']:.2e} or "
+                                 f"gradient {f['f64_grad_rel']} off core.nll")
+        if not f["f32_rel"] <= 1e-4:
+            raise AssertionError(f"sharded_train {name}: fp32 loss {f['f32_rel']:.2e} off")
+        t = train[name]
+        if not (np.all(np.isfinite(t["losses"])) and t["max_rel_to_unsharded"] <= 1e-4):
+            raise AssertionError(f"sharded_train {name}: losses {t['losses']} against the "
+                                 f"unsharded {unsharded.tolist()}")
+        if t["collectives_a_step"] != pinned[name]:
+            raise AssertionError(f"sharded_train {name}: collectives {t['collectives_a_step']}, "
+                                 f"pinned {pinned[name]}")
+    del m8, Y8, lay, p64, gref64, res
+    torch.cuda.empty_cache()
+
+    _phase[0] = "sharded_predict"
+    t_phase = time.perf_counter()
+    m5, xs = n5120
+    sp = par.make_mesh({"sp": 1})
+    cast = lambda obj: type(obj)(**{f.name: getattr(obj, f.name).double()  # noqa: E731
+                                    for f in dataclasses.fields(obj)})
+    post64, prm64, xs64 = cast(m5.posterior), cast(m5.params), xs.double()
+    pred = {}
+    for name, sharded_fn, plain_fn in (
+            ("predict_y", par.predict_y_rowsharded, core.predict_y),
+            ("predict_x_all_classes", par.predict_x_all_classes_rowsharded,
+             core.predict_x_all_classes)):
+        want = plain_fn(post64, prm64, xs64, m5.config)
+        got64 = sharded_fn(post64, prm64, xs64, m5.config, sp)
+        got32 = sharded_fn(m5.posterior, m5.params, xs, m5.config, sp)
+        med = [float(w.abs().median()) for w in want]
+        pred[name] = {
+            "f64_err_over_median": [float((a - w).abs().max()) / mm
+                                    for a, w, mm in zip(got64, want, med)],
+            "f32_gap_over_median": [float((a.double() - w).abs().max()) / mm
+                                    for a, w, mm in zip(got32, want, med)],
+            "outputs": ["mean", "var"], "shape": list(want[0].shape),
+            "collectives": par.count_collectives(sharded_fn, m5.posterior, m5.params, xs,
+                                                 m5.config, sp)}
+    emit({"phase": "sharded_predict", **group, "asset": "bench_model_n5120.npz",
+          "Ny": m5.layout.Ny, "n_max": m5.layout.n_max, "particles": xs.shape[0],
+          "predictions": pred, "seconds": time.perf_counter() - t_phase, "device": kind,
+          "nvidia_smi": smi})
+    for name, e in pred.items():
+        if not max(e["f64_err_over_median"]) <= 1e-9:
+            raise AssertionError(f"sharded_predict {name}: float64 error "
+                                 f"{e['f64_err_over_median']} x the median")
+    del post64, prm64, xs64
+    par.shutdown()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # kernel-name fragments by kind, the first match taken: cuSOLVER's QR

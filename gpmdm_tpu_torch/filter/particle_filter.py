@@ -458,11 +458,22 @@ def pf_scan_bank_masked(states: PFState, Z: torch.Tensor, valid: torch.Tensor | 
     Returns the final states and readouts of shape (B, T, ...).
     ``noise`` (leading frame axis, then bank) injects every frame's
     randomness; otherwise each frame draws from ``generator``."""
+    return scan_bank_frames(states, Z, valid, post, params, log_T, cfg, pf_cfg,
+                            lambda t: None if noise is None else _map(noise, lambda a: a[t]),
+                            generator)
+
+
+def scan_bank_frames(states: PFState, Z: torch.Tensor, valid: torch.Tensor | None, post,
+                     params: core.GPMDMParams, log_T: torch.Tensor, cfg: GPMDMConfig,
+                     pf_cfg: PFConfig, frame_noise,
+                     generator: torch.Generator | None = None) -> tuple[PFState, PFOutputs]:
+    """The frame loop of :func:`pf_scan_bank_masked`, frame t's randomness
+    from ``frame_noise(t)`` (a ``PFNoise``, or None to draw from
+    ``generator``)."""
     outs = []
     for t in range(Z.shape[1]):
-        nz = None if noise is None else _map(noise, lambda a: a[t])
         new, out = pf_step_bank(states, Z[:, t], post, params, log_T, cfg, pf_cfg,
-                                noise=nz, generator=generator)
+                                noise=frame_noise(t), generator=generator)
         if valid is not None:
             v = valid[:, t]
             keep = lambda a, b: torch.where(v.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)

@@ -167,15 +167,21 @@ def xin_xout(X, layout: DataLayout, target: str):
     return Xin, Xout
 
 
-def padded_class_indices(layout: DataLayout) -> dict:
+def padded_class_indices(
+    layout: DataLayout, n_class_pad: int | None = None, n_max_pad: int | None = None
+) -> dict:
     """Zero-padded per-class gather arrays into the Ny axis.
 
-    Returns ``{"idx_in", "idx_prev", "idx_out": (C, n_max), "mask": (C,
-    n_max)}`` where row c lists class c's dynamics pairs (x(t), x(t-1),
-    x(t+1) indices), padded with 0 and masked.  The JAX package's further
-    padding of both axes (for a device mesh) is not ported.
+    Returns ``{"idx_in", "idx_prev", "idx_out": (C', n_max'), "mask":
+    (C', n_max')}`` where row c lists class c's dynamics pairs (x(t),
+    x(t-1), x(t+1) indices), padded with 0 and masked.  ``n_class_pad`` /
+    ``n_max_pad`` optionally pad the class / pair axes further (to make them
+    divisible by a mesh axis); padded classes are entirely masked.
     """
-    C, M = layout.n_classes, layout.n_max
+    C = n_class_pad or layout.n_classes
+    M = n_max_pad or layout.n_max
+    if C < layout.n_classes or M < layout.n_max:
+        raise ValueError("padding must not shrink the class/pair axes")
     idx_in = np.zeros((C, M), dtype=np.int32)
     idx_prev = np.zeros((C, M), dtype=np.int32)
     idx_out = np.zeros((C, M), dtype=np.int32)

@@ -62,6 +62,9 @@ class EvalReport:
     trial_metrics: Dict[str, float]
     total_frames: int
     total_wall_s: float
+    #: each trial's most likely class at every frame, burn-in included
+    #: (``evaluate_pf_banked``)
+    frame_predictions: Optional[List[np.ndarray]] = None
 
     @property
     def fps(self) -> float:
@@ -157,6 +160,7 @@ def evaluate_pf_banked(
     logger=None,
     posterior=None,
     max_banks: Optional[int] = None,
+    mesh=None,
 ) -> EvalReport:
     """Evaluate every trial at once, one independent filter per trial.
 
@@ -177,8 +181,16 @@ def evaluate_pf_banked(
     ``max_banks`` caps the filters per call: chunks are padded to exactly
     ``max_banks`` rows (invalid, sliced off), and the random streams then
     depend on the chunking.  ``logger`` (``utils.logging.MetricLogger``)
-    gets one record per trial and one for the set.  The JAX
-    package's ``mesh`` (banks spread over devices) is not ported yet.
+    gets one record per trial and one for the set.
+
+    ``mesh``, a ``DeviceMesh`` with a ``dp`` axis
+    (``parallel.make_mesh``), spreads the banks over its ranks
+    (``parallel.pf_scan_bank_sharded_masked``, no collective in the scan):
+    B is padded to a multiple of |dp| with all-invalid rows, which take no
+    draws, and the most likely classes are gathered once after the scan,
+    so every rank returns the report, equal to the unsharded one for the
+    same seed.  ``max_banks`` is then ignored, as in the JAX package.  Call
+    it on every rank.
     """
     import torch
 
@@ -200,10 +212,17 @@ def evaluate_pf_banked(
 
     lengths = [len(Z) for Z in test_seqs]
     T_pad = pf.bucket_length(max(lengths))
-    Bc = B if max_banks is None else min(max_banks, B)
-    n_chunks = -(-B // Bc)
-    Zb = np.zeros((n_chunks * Bc, T_pad, model.D), dtype=np.float64)
-    valid = np.zeros((n_chunks * Bc, T_pad), dtype=bool)
+    if mesh is not None:
+        from ..parallel import collectives
+        from ..parallel.mesh import axis_size
+        from ..parallel.pf_bank import pf_scan_bank_sharded_masked
+
+        n_rows = -(-B // axis_size(mesh, "dp")) * axis_size(mesh, "dp")
+    else:
+        Bc = B if max_banks is None else min(max_banks, B)
+        n_rows = -(-B // Bc) * Bc
+    Zb = np.zeros((n_rows, T_pad, model.D), dtype=np.float64)
+    valid = np.zeros((n_rows, T_pad), dtype=bool)
     for i, Z in enumerate(test_seqs):
         Zb[i, : lengths[i]] = np.asarray(Z)
         valid[i, : lengths[i]] = True
@@ -213,12 +232,23 @@ def evaluate_pf_banked(
     generator = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     pred_chunks = []
-    for lo in range(0, n_chunks * Bc, Bc):
-        states = pf.pf_init_bank(post, model.layout.y_class_offsets, generator, pfc, Bc)
-        _, outs = pf.pf_scan_bank_masked(states, Zb[lo:lo + Bc], valid_t[lo:lo + Bc],
-                                         post, model.params, log_T, model.config, pfc,
-                                         generator=generator)
-        pred_chunks.append(outs.most_likely_class.cpu().numpy())  # waits for the device
+    if mesh is not None:
+        states = pf.pf_init_bank(post, model.layout.y_class_offsets, generator, pfc, B)
+        # the padding rows hold bank 0's state and are invalid at every frame
+        states = pf._map(states, lambda a: torch.cat(
+            [a, a[:1].expand((n_rows - B,) + tuple(a.shape[1:]))]))
+        _, outs = pf_scan_bank_sharded_masked(states, Zb, valid_t, post, model.params, log_T,
+                                              model.config, pfc, mesh, generator=generator,
+                                              n_banks=B)
+        pred_chunks.append(collectives.all_gather(outs.most_likely_class,
+                                                  mesh.get_group("dp")).cpu().numpy())
+    else:
+        for lo in range(0, n_rows, Bc):
+            states = pf.pf_init_bank(post, model.layout.y_class_offsets, generator, pfc, Bc)
+            _, outs = pf.pf_scan_bank_masked(states, Zb[lo:lo + Bc], valid_t[lo:lo + Bc],
+                                             post, model.params, log_T, model.config, pfc,
+                                             generator=generator)
+            pred_chunks.append(outs.most_likely_class.cpu().numpy())  # waits for the device
     wall = time.perf_counter() - t0
     preds_all = np.concatenate(pred_chunks, axis=0)[:B]  # (B, T_pad)
 
@@ -236,6 +266,7 @@ def evaluate_pf_banked(
                        pred_label=trial_pred[-1], true_label=int(label))
     rep = _report(frame_pred, frame_true, trial_pred, test_labels, n_classes,
                   total_frames, wall)
+    rep.frame_predictions = [preds_all[i, : lengths[i]] for i in range(B)]
     if logger is not None:
         logger.log(step=B, frame_acc=rep.frame_metrics["accuracy"],
                    frame_f1=rep.frame_metrics["f1"], fps=rep.fps)
