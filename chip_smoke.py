@@ -199,7 +199,31 @@ Phases, each printing one JSON line on stdout:
              the asset's frame accuracy must reach 0.90, and the trace
              must name K1 (x_onepass or posterior_core<TP, 1>), K2
              (posterior_core<TP, 2>) and K3 (resample_rank_kernel).
-18. sharded_bank - the distribution layer (gpmdm_tpu_torch.parallel) over
+18. examples - the example scripts, ``python -m
+             gpmdm_tpu_torch.examples.<name>``, in subprocesses with the pin
+             unset (the card), each started once its input exists:
+             train_gpmdm (500 Adam steps on the synthetic stand-in: D = 12,
+             d = 2, C = 2, Ny = 640) must exit 0, print its latent map NMSE
+             and a finite final loss; test_gpmdm_pf on its checkpoint at P =
+             100, looped and --banked, must exit 0 and print the frame
+             confusion (frame and trial accuracy reported, not gated).  In
+             this process on the card: view_gpmdm_pf.track of that model on
+             its 80-frame synthetic trial, whose launch counters must rise by
+             80 each for K1, K2 and K3; and the code cells of
+             gpmdm_tpu_torch/notebooks/deploy_gpmdm.ipynb with plain exec
+             (bench_model.npz: 'auto', exact at Ny = 480; compressed; the
+             k-means M = 128 distillation; each through its banked guard at P
+             = 500, 12 trials padded to 64 frames, the guard cell once for
+             each posterior): accuracies reported, launches exactly 64 of
+             each of K1-K3 on 'auto' and K1 = K2 = 0, K3 = 64 on the others.
+             Once the subprocesses have ended, K1, K2 and K3 are held
+             against their plain versions, as in the kernels phase, at the
+             shapes this phase gives them: the examples' model in one bank
+             of P = 100 (K1 on the streamed core) and bench_model in the
+             notebook's 12 banks of P = 500 (K1 one-pass).
+             Rendering is not run here (the card's machine has neither
+             matplotlib nor pygame); the CPU tests check it.
+19. sharded_bank - the distribution layer (gpmdm_tpu_torch.parallel) over
              NCCL: one process group of world 1 on cuda:0 (started here,
              torn down after sharded_predict), a ``dp`` mesh of one rank.
              evaluate_pf_banked(mesh=...) on the banked guard's 12 trials
@@ -216,7 +240,7 @@ Phases, each printing one JSON line on stdout:
              pf_scan_bank's (best of 4, the two alternating).  A group's
              NCCL communicator starts at its first collective, timed apart
              (first_collectives_s) before any rate.
-19. sharded_train - bench_model_c8n5120.npz (C = 8, D = 10, d = 3, Ny =
+20. sharded_train - bench_model_c8n5120.npz (C = 8, D = 10, d = 3, Ny =
              5,120, f32, with its Adam state) on make_train_mesh: (ep, tp) =
              (1, 1).  Both loss forms (replicated Cholesky; shard_chol, the
              distributed Cholesky): in float64 the loss within 1e-9 relative
@@ -227,7 +251,7 @@ Phases, each printing one JSON line on stdout:
              unsharded train_adam's at the same step; the collectives of a
              step equal the table pinned in tests/test_torch_parallel.py.
              Steps/s of all three.
-20. sharded_predict - n5120's exact posterior (built in large_n):
+21. sharded_predict - n5120's exact posterior (built in large_n):
              predict_y_rowsharded and predict_x_all_classes_rowsharded at P =
              10,000 (its initial cloud), cast to float64 on the card, within
              1e-9 x each output's median magnitude of core.predict_y /
@@ -244,9 +268,12 @@ a global deadline turns a hang into an exit with the phase it was in.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
 import glob
+import importlib.util
+import io
 import json
 import os
 import re
@@ -303,6 +330,14 @@ CLI_TIMEOUT_S = 240
 TRACE_KERNELS = {"fused_x_posterior": r"x_onepass|posterior_core<\d+, ?1>",
                  "fused_obs_loglik": r"posterior_core<\d+, ?2>",
                  "resample_rank": r"resample_rank_kernel"}
+# the example scripts on the card: the train_gpmdm run's Adam steps (its
+# default) and the particles of the evaluations and of the view example's
+# filter (test_gpmdm_pf's default)
+EXAMPLE_TRAIN_STEPS, EXAMPLE_PARTICLES = 500, 100
+# the deploy notebook's posteriors, each through its guard: exact ('auto' at
+# Ny = 480) runs K1-K3 once a frame, the others K3 alone
+DEPLOY_NB = "gpmdm_tpu_torch/notebooks/deploy_gpmdm.ipynb"
+DEPLOY_NB_EXACT = {"auto": True, "compressed": False, "distilled-M128": False}
 # the fp32 loss's tolerance against float64 is at least this, or 4 x the
 # host's own fp32 gap where the cancellation in the trace term is larger
 SPARSE_FIRST_RTOL = 1e-3
@@ -592,13 +627,15 @@ def main(argv) -> int:
     ]
     offsets = model.layout.y_class_offsets
 
-    def bank_cloud(nb, pb):
-        """The initial cloud of nb banks of pb particles, flat, and a bank step
-        on the stream's first nb frames: its weights give K3 a real s."""
+    def bank_cloud(nb, pb, m_=model, Z_=Z):
+        """The initial cloud of nb banks of pb particles of m_'s posterior,
+        flat, and a bank step on Z_'s first nb frames: its weights give K3
+        a real s."""
         cfg_b = PFConfig(num_particles=pb, pallas="on")
         g = torch.Generator(device=dev).manual_seed(nb * pb)
-        st = pf.pf_init_bank(post, offsets, g, cfg_b, nb)
-        new, _ = pf.pf_step_bank(st, Z[:nb], post, params, log_T, cfg, cfg_b, generator=g)
+        st = pf.pf_init_bank(m_.posterior, m_.layout.y_class_offsets, g, cfg_b, nb)
+        new, _ = pf.pf_step_bank(st, Z_[:nb], m_.posterior, m_.params, log_T, m_.config, cfg_b,
+                                 generator=g)
         log_w = new.log_lik - torch.logsumexp(new.log_lik, 1, keepdim=True)
         u = torch.rand(nb, generator=g, device=dev)
         return st.x.reshape(nb * pb, d).contiguous(), pf.systematic_counts(u, log_w)
@@ -1608,27 +1645,26 @@ def main(argv) -> int:
     asset = os.path.join(ROOT, "bench_assets", "bench_model.npz")
     cli_runs = {}
 
-    def cli_start(name, *args):
-        """``python -m gpmdm_tpu_torch *args`` with the platform pin unset:
-        on the card."""
-        proc = subprocess.Popen([sys.executable, "-m", "gpmdm_tpu_torch", *args], cwd=ROOT,
-                                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                text=True)
+    def cli_start(name, *args, module="gpmdm_tpu_torch", runs=cli_runs):
+        """``python -m module *args`` with the platform pin unset: on the
+        card."""
+        proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         _children.append(proc)
-        cli_runs[name] = {"argv": list(args), "proc": proc}
+        runs[name] = {"argv": list(args), "proc": proc}
 
-    def cli_finish(name):
+    def cli_finish(name, runs=cli_runs):
         """Wait for run ``name`` and record it; a non-zero exit fails.  The
         runs share the card, so only the phase's total seconds are kept."""
-        run = cli_runs[name]
+        run = runs[name]
         proc = run.pop("proc")
         out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
         run.update(rc=proc.returncode, stdout=out, stdout_tail=out[-600:],
                    stderr_tail=err[-600:])
         if run["rc"] != 0:
-            emit({"phase": "cli", "failed": name,
+            emit({"phase": _phase[0], "failed": name,
                   **{k: v for k, v in run.items() if k != "stdout"}})
-            raise AssertionError(f"cli {name}: exit {run['rc']}")
+            raise AssertionError(f"{_phase[0]} {name}: exit {run['rc']}")
 
     try:
         # each command starts as soon as the file it reads is written
@@ -1675,6 +1711,107 @@ def main(argv) -> int:
     if not all(traced.values()):
         raise AssertionError(f"cli: the --trace of eval --banked lacks a kernel: {traced}")
 
+    _phase[0] = "examples"
+    t_phase = time.perf_counter()
+    from gpmdm_tpu_torch.examples import view_gpmdm_pf
+
+    ex_tmp = tempfile.mkdtemp(prefix="gpmdm_examples_")
+    ex_ckpt = os.path.join(ex_tmp, "m.npz")
+    ex_runs = {}
+
+    def example_start(name, *args):
+        cli_start(name, *args, module=f"gpmdm_tpu_torch.examples.{name.split()[0]}",
+                  runs=ex_runs)
+
+    try:
+        example_start("train_gpmdm", "--steps", str(EXAMPLE_TRAIN_STEPS), "--out", ex_ckpt)
+        notebook = deploy_notebook(reset_launches, check_launches)
+        cli_finish("train_gpmdm", runs=ex_runs)
+        example_start("test_gpmdm_pf", ex_ckpt, "--particles", str(EXAMPLE_PARTICLES))
+        example_start("test_gpmdm_pf --banked", ex_ckpt, "--particles",
+                      str(EXAMPLE_PARTICLES), "--banked")
+        # the view example's filter, in this process on the card: K1-K3 once a frame
+        ex_model = GPMDM.load(ex_ckpt, device=dev)
+        with contextlib.redirect_stdout(io.StringIO()):  # its note on the synthetic data
+            Z_ex = view_gpmdm_pf.load_trial(ex_model.D)[0]
+        reset_launches()
+        traj, probs = view_gpmdm_pf.track(ex_model, Z_ex, EXAMPLE_PARTICLES)
+        track_launches = check_launches("examples track", len(Z_ex))
+        for name in ("test_gpmdm_pf", "test_gpmdm_pf --banked"):
+            cli_finish(name, runs=ex_runs)
+    finally:
+        for proc in _children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    # K1-K3 against their plain versions at the shapes this phase gives
+    # them, on the card alone: the examples' model in one bank of P = 100
+    # (track; K1 on the streamed core at its rows a class) and bench_model
+    # in the deploy notebook's banks of P = 500 (K1 one-pass)
+    Z_ex_dev = torch.as_tensor(np.asarray(Z_ex), device=dev, dtype=ex_model.dtype)
+    ex_checks = []
+    for label, m_, Z_, nb, pb in (
+            ("examples_track", ex_model, Z_ex_dev, 1, EXAMPLE_PARTICLES),
+            ("deploy_nb_auto", model, Z, notebook["auto"]["banks"],
+             notebook["auto"]["particles"])):
+        xe, s_e = bank_cloud(nb, pb, m_, Z_)
+        pst, prm = m_.posterior, m_.params
+        checks = (
+            (0, check_k1(pst, xe, torch.exp(-prm.x_log_lengthscales),
+                         torch.exp(prm.x_log_lin_coeff),
+                         *conditioned_classes(*pst.Axc.shape, dev, seed=6))),
+            (2, check_k2(pst, xe, torch.exp(-prm.y_log_lengthscales),
+                         torch.exp(2.0 * prm.y_log_lambdas),
+                         Z_[0] if nb == 1 else Z_[:nb].contiguous(),
+                         *conditioned(pst.X.shape[0], m_.D, dev, seed=7))),
+            (3, check_rank(rs, s_e, dirichlet_counts(nb, pb, nb + pb, dev), peaks)))
+        for i, e in checks:
+            e.update(run=label, shape=[nb, pb])
+            kernels[i].setdefault("examples", []).append(e)
+            ex_checks.append({"name": kernels[i]["name"],
+                              **{k: v for k, v in e.items() if k != "conditioned_inputs"}})
+    train_out = ex_runs["train_gpmdm"]["stdout"]
+    final_loss = float(re.search(r"final loss (\S+)", train_out).group(1))
+    evals = {}
+    for name in ("test_gpmdm_pf", "test_gpmdm_pf --banked"):
+        out = ex_runs[name]["stdout"]
+        evals[name] = {"frame_confusion_printed": "frame confusion" in out,
+                       "frame_acc": float(re.search(r"frames: acc=([0-9.]+)", out).group(1)),
+                       "trial_acc": float(re.search(r"trials: acc=([0-9.]+)", out).group(1))}
+    track_ok = (traj.shape == (len(Z_ex), ex_model.d) and probs.shape == (len(Z_ex), 2)
+                and np.isfinite(traj).all() and np.allclose(probs.sum(1), 1.0, atol=1e-4))
+    examples_launches = {"examples_track": track_launches,
+                         **{f"deploy_nb_{k}": notebook[k]["launches"] for k in DEPLOY_NB_EXACT}}
+    entry = {"phase": "examples",
+             "runs": {k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
+                      for k, v in ex_runs.items()},
+             "train": {"steps": EXAMPLE_TRAIN_STEPS, "final_loss": final_loss,
+                       "latent_map_nmse_printed": "latent map NMSE" in train_out,
+                       "Ny": ex_model.layout.Ny, "D": ex_model.D, "d": ex_model.d},
+             "eval": evals,
+             "track": {"frames": len(Z_ex), "particles": EXAMPLE_PARTICLES,
+                       "launches": track_launches, "outputs_ok": bool(track_ok),
+                       "state_mean_shape": list(traj.shape),
+                       "majority_class": int(np.bincount(probs.argmax(1)).argmax())},
+             "deploy_notebook": notebook, "kernel_checks": ex_checks,
+             "rendering": "not run on the card: its machine has neither matplotlib nor pygame; "
+                          "the viewers and the GIFs are checked on the CPU (tests/test_torch_viz.py, "
+                          "test_torch_viewer.py, test_torch_examples.py)",
+             "matplotlib_installed": importlib.util.find_spec("matplotlib") is not None,
+             "seconds": time.perf_counter() - t_phase, "device": kind, "nvidia_smi": smi}
+    shutil.rmtree(ex_tmp, ignore_errors=True)
+    emit(entry)
+    if not (entry["train"]["latent_map_nmse_printed"] and np.isfinite(final_loss)):
+        raise AssertionError(f"examples: train_gpmdm printed no latent map NMSE or a final "
+                             f"loss of {final_loss}")
+    if not all(e["frame_confusion_printed"] for e in evals.values()):
+        raise AssertionError("examples: test_gpmdm_pf printed no frame confusion")
+    if not track_ok:
+        raise AssertionError("examples: track's trajectory or class probabilities are not "
+                             "finite and of the trial's shape")
+    del ex_model
+    torch.cuda.empty_cache()
+
     sharded_launches = sharded_phases(dev, kind, smi, model, pfc, q_seqs, q_labels, Z,
                                       reset_launches, check_launches,
                                       {"banked_guard": asset_guard["agg_fps"],
@@ -1694,18 +1831,61 @@ def main(argv) -> int:
                                   "compressed_banked_guard": comp_guard_launches[n],
                                   **{k: v[n] for k, v in compressed_launches.items()},
                                   **{k: v[n] for k, v in sparse_launches.items()},
-                                  **{k: v[n] for k, v in sharded_launches.items()}}
+                                  **{k: v[n] for k, v in sharded_launches.items()},
+                                  **{k: v[n] for k, v in examples_launches.items()}}
 
     _phase[0] = "report"
     heavy = ("path_inputs", "conditioned_inputs")
     emit({"kernels": [{k: ([{kk: vv for kk, vv in e.items() if kk not in heavy} for e in v]
-                           if k in ("banked", "large_n", "assets") else v)
+                           if k in ("banked", "large_n", "assets", "examples") else v)
                        for k, v in kern.items() if k not in heavy}
                       for kern in kernels]})
     print(f"{smi} (total {time.perf_counter() - t_start:.1f} s)", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def deploy_notebook(reset_launches, check_launches):
+    """The code cells of the port's deploy notebook, in order, with plain
+    exec from the notebook's folder (the pin unset: the card).  Its guard
+    cell runs once for each posterior, so that each run's launches are
+    counted apart.  Returns each posterior's type, frame accuracy, F1 and
+    launches, with the tail of the notebook's printed output."""
+    from gpmdm_tpu_torch.filter import particle_filter as pf
+
+    with open(os.path.join(ROOT, DEPLOY_NB)) as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"] if c["cell_type"] == "code"]
+    ns = {"__name__": "__main__"}
+    printed = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(os.path.dirname(os.path.join(ROOT, DEPLOY_NB)))
+    try:
+        with contextlib.redirect_stdout(printed):
+            for i, src in enumerate(cells[:3]):
+                exec(compile(src, f"{DEPLOY_NB}:code cell {i}", "exec"), ns)
+            posts, out = ns["posts"], {}
+            if sorted(posts) != sorted(DEPLOY_NB_EXACT):
+                raise AssertionError(f"deploy notebook: posteriors {sorted(posts)}")
+            for name, post in posts.items():
+                ns["posts"] = {name: post}
+                reset_launches()
+                exec(compile(cells[3], f"{DEPLOY_NB}:code cell 3", "exec"), ns)
+                frames = pf.bucket_length(max(len(q) for q in ns["q_seqs"]))
+                launches = check_launches(f"deploy notebook {name}", frames,
+                                          exact=DEPLOY_NB_EXACT[name])
+                fm = ns["rep"].frame_metrics
+                out[name] = {"posterior": type(post).__name__, "frame_acc": fm["accuracy"],
+                             "frame_f1": fm["f1"], "padded_frames": frames,
+                             "banks": len(ns["q_seqs"]),
+                             "particles": ns["pfc"].num_particles, "launches": launches}
+            ns["posts"] = posts
+            for i, src in enumerate(cells[4:], start=4):
+                exec(compile(src, f"{DEPLOY_NB}:code cell {i}", "exec"), ns)
+    finally:
+        os.chdir(cwd)
+    out["printed_tail"] = printed.getvalue()[-800:]
+    return out
 
 
 def sharded_phases(dev, kind, smi, model, pfc, q_seqs, q_labels, Z, reset_launches,

@@ -3,19 +3,24 @@
 The JAX package's CLI (``python -m gpmdm_tpu``) on the port, with its
 commands' flags, defaults, exit codes and printed summaries:
 
+view <asf> <amc>      interactive skeleton animation (pygame + OpenGL)
 train [...]           train a GPMDM (CMU walk/run if the data is present,
                       else synthetic limit cycles) and save a checkpoint
 eval <ckpt> [...]     stream test trials through the particle filter and
                       print confusion matrices / F1 / fps
-rollout <ckpt> [...]  autoregressive latent rollout, printed
+rollout <ckpt> [...]  autoregressive latent rollout, printed (and plotted
+                      over the latent space with --plot)
 deploy <ckpt> [...]   bake the deployment posterior into the checkpoint
                       (later loads skip the O(N^3) host precompute)
+demo <ckpt> [...]     render the PF demo animation (GIF) through
+                      ``gpmdm_tpu_torch.examples.view_gpmdm_pf``
 
-Everything runs on the CUDA card unless ``GPMDM_TPU_PLATFORM=cpu``, the
-JAX package's platform pin: unset or ``gpu`` means the card, and a run
-with no card fails at once (exit 2) instead of carrying on on the CPU.
-The JAX package's ``view``, ``demo``, ``bench`` and ``rollout --plot``
-need the viewers and the benchmark, which the port does not have yet.
+Everything that reads a model runs on the CUDA card unless
+``GPMDM_TPU_PLATFORM=cpu``, the JAX package's platform pin: unset or
+``gpu`` means the card, and a run with no card fails at once (exit 2)
+instead of carrying on on the CPU.  ``view`` reads no model and touches no
+device, so it needs neither.  The JAX package's ``bench`` runs its own
+benchmark, which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -46,6 +51,16 @@ def _device() -> str | None:
                   file=sys.stderr)
             return None
     return PLATFORMS[plat]
+
+
+def _cmd_view(args) -> int:
+    from .data.amc_asf import parse_amc, parse_asf
+    from .viz.viewer import Viewer
+
+    skel = parse_asf(args.asf)
+    motion = parse_amc(args.amc, skel)
+    Viewer(skel, motion, fps=args.fps).run()
+    return 0
 
 
 def _load_dataset(args, D=None, C=None):
@@ -199,7 +214,12 @@ def _cmd_rollout(args, device) -> int:
     x0 = model.get_X_for_class(args.cls)[0].cpu().numpy()
     if model.dyn_back_step == 2:
         x0 = np.stack([x0, x0])
-    print(model.rollout(x0, args.steps, args.cls).cpu().numpy())
+    traj = model.rollout(x0, args.steps, args.cls).cpu().numpy()
+    print(traj)
+    if args.plot:
+        from .viz.latent import plot_pf_trajectory
+
+        plot_pf_trajectory(model, traj, show=True)
     return 0
 
 
@@ -261,9 +281,23 @@ def _cmd_deploy(args, device) -> int:
     return 0
 
 
+def _cmd_demo(args, device) -> int:
+    """Render the PF demo animation (the view_gpmdm_pf example)."""
+    from .examples import view_gpmdm_pf
+
+    return view_gpmdm_pf.main([args.ckpt, "--out", args.out,
+                               "--particles", str(args.particles)])
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gpmdm_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
+
+    pv = sub.add_parser("view", help="interactive skeleton viewer")
+    pv.add_argument("asf")
+    pv.add_argument("amc")
+    pv.add_argument("--fps", type=int, default=120)
+    pv.set_defaults(fn=_cmd_view, needs_device=False)
 
     def add_data_args(sp):
         sp.add_argument("--mocap-dir", default=None)
@@ -339,6 +373,7 @@ def _parser() -> argparse.ArgumentParser:
     pr.add_argument("ckpt")
     pr.add_argument("--cls", type=int, default=0)
     pr.add_argument("--steps", type=int, default=100)
+    pr.add_argument("--plot", action="store_true")
     pr.set_defaults(fn=_cmd_rollout)
 
     pp = sub.add_parser("deploy", help="bake the deployment posterior into a checkpoint "
@@ -358,11 +393,19 @@ def _parser() -> argparse.ArgumentParser:
     pp.add_argument("--sparsify-method", default="stride", choices=["stride", "kmeans"],
                     help="inducing-input selection for --sparsify")
     pp.set_defaults(fn=_cmd_deploy)
+
+    pd = sub.add_parser("demo", help="render the PF demo animation (GIF)")
+    pd.add_argument("ckpt")
+    pd.add_argument("--out", default="pf_demo.gif")
+    pd.add_argument("--particles", type=int, default=100)
+    pd.set_defaults(fn=_cmd_demo)
     return p
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if not getattr(args, "needs_device", True):  # view: no model, no device
+        return args.fn(args)
     device = _device()
     if device is None:
         return 2

@@ -8,9 +8,7 @@ representation here is the vectorized :class:`~gpmdm_tpu_torch.data.amc_asf.Skel
 same per-frame object API for notebook-style exploration and the viewers.
 
 A numpy-only copy of ``gpmdm_tpu/data/joint_tree.py`` for the port, which imports
-nothing of the JAX package.
-The port has no viewers yet, so the reference's ``draw`` is left out
-(ROADMAP A.6b).
+nothing of the JAX package; ``draw`` imports the port's viz when called.
 """
 
 from __future__ import annotations
@@ -76,6 +74,13 @@ class Joint:
         for child in self.children:
             out.update(child.to_dict())
         return out
+
+    def draw(self, ax=None, show: bool = True):
+        """Scatter + bone segments on a 3D matplotlib axis (reference
+        amc_parser.py:76-108; same plot axis permutation z, x, y)."""
+        from ..viz.skeleton_plot import draw_joint_tree
+
+        return draw_joint_tree(self, ax=ax, show=show)
 
     def pretty_print(self) -> None:
         print(f"joint: {self.name} dof={self.dof} length={self.length:.4f}")

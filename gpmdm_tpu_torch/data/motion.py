@@ -4,7 +4,7 @@ API-parity layer for the reference ``MotionCapture``
 (`reference/amc_parser/motion.py:7`): same constructor shape
 (asf_path, amc_path, fps, subject, trial), same ``as_dataframe`` column
 scheme (``frame``, ``time``, then ``{joint}_{dof}`` per declared dof), same
-``get_columns_for_joint(s)`` helpers.
+``get_columns_for_joint(s)`` helpers, plus ``view()``.
 
 Differences (intentional):
 - ``as_dataframe`` is vectorized — one column assignment per joint instead
@@ -17,8 +17,8 @@ Differences (intentional):
 
 A numpy-only copy of ``gpmdm_tpu/data/motion.py`` for the port, which imports
 nothing of the JAX package.
-``select_joints`` reads the channel arrays without pandas, and the
-reference's ``view()`` waits for the port's viewers (ROADMAP A.6b).
+``select_joints`` reads the channel arrays without pandas; ``view()``
+imports the port's viewer when called.
 """
 
 from __future__ import annotations
@@ -123,3 +123,9 @@ class MotionCapture:
         from .fk import forward_kinematics
 
         return forward_kinematics(self.skeleton, self.motion)["positions"]
+
+    def view(self):
+        """Interactive skeleton animation (reference motion.py:81-88)."""
+        from ..viz.viewer import Viewer
+
+        Viewer(self.skeleton, self.motion).run()

@@ -1,6 +1,7 @@
 """Rules the PyTorch port keeps, checked on the CPU.
 
-- No file of gpmdm_tpu_torch/ or chip_smoke.py imports jax or gpmdm_tpu.
+- No file of gpmdm_tpu_torch/ or chip_smoke.py, and no code cell of the
+  port's notebooks, imports jax or gpmdm_tpu.
 - The kernels are built by nvcc into a hashed, git-ignored directory and
   bound with ctypes; nothing uses torch.utils.cpp_extension.  Every CUDA
   source is in the one nvcc call, and every launcher has a signature.
@@ -23,11 +24,20 @@ import torch
 from gpmdm_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "gpmdm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "gpmdm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "gpmdm_tpu_torch" / "notebooks").glob("*.ipynb")))
+
+
+def _source(path: Path) -> str:
+    """A module's text, or a notebook's code cells, one after another."""
+    if path.suffix != ".ipynb":
+        return path.read_text()
+    cells = json.loads(path.read_text())["cells"]
+    return "\n".join("".join(c["source"]) for c in cells if c["cell_type"] == "code")
 
 
 def _imported_modules(path: Path):
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+    for node in ast.walk(ast.parse(_source(path), filename=str(path))):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
