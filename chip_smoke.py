@@ -536,6 +536,7 @@ def main(argv) -> int:
     from gpmdm_tpu_torch.ops import resample as rs
     from gpmdm_tpu_torch.train import trainer
     from gpmdm_tpu_torch.utils import asset_guard as ag
+    from gpmdm_tpu_torch.utils import profiling
     from gpmdm_tpu_torch.utils.logging import MetricLogger
     from gpmdm_tpu_torch.utils.metrics import evaluate_pf, evaluate_pf_banked
 
@@ -705,16 +706,18 @@ def main(argv) -> int:
         {k: v for k, v in e.items() if k not in ("conditioned_inputs",)}
         for i in (2, 0) for e in kernels[i]["large_n"]]})
 
-    def reset_launches():
-        gpk.reset_launches()
-        rs.reset_launches()
+    # each kernel's launch counter in the program's registry
+    counters = {"fused_x_posterior": "ops.k1.launches", "fused_rbf_posterior": "ops.k1p.launches",
+                "fused_obs_loglik": "ops.k2.launches", "resample_rank": "ops.k3.launches"}
+    reset_launches = profiling.reset
 
     def check_launches(label, frames, exact=True):
         """The counters against ``frames`` frames of one launch each of K1
         (every class at once), K2 and K3, whatever the number of banks and
         classes; on a compressed or sparse posterior (``exact=False``) of K3
         alone."""
-        got = {**gpk.LAUNCHES, **rs.LAUNCHES}
+        now = profiling.snapshot()["counters"]
+        got = {k: now.get(c, 0) for k, c in counters.items()}
         k = frames if exact else 0
         want = {"fused_x_posterior": k, "fused_rbf_posterior": 0,
                 "fused_obs_loglik": k, "resample_rank": frames}

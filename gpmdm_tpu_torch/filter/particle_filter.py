@@ -32,6 +32,12 @@ Randomness comes from an explicit ``torch.Generator`` on the state's
 device, or is injected per frame as ``PFNoise`` (the parity tests feed the
 JAX package's own draws).  The step makes no host round trip: every
 branch on data is a ``torch.where``.
+
+The step runs in the span ``pf.step`` and its stages in ``pf.transition``,
+``pf.dynamics``, ``pf.observation``, ``pf.readouts`` and ``pf.resample``
+(``utils.profiling``); a scan chunk in ``pf.scan``, a bank's
+initialisation in ``pf.init``, the deployment policy in
+``pf.resolve_posterior``.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from ..models import compressed, core, sparse
 from ..ops import gp_posterior as gpk
 from ..ops import kernels as K
 from ..ops import resample as rs
+from ..utils.profiling import span
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -125,23 +132,24 @@ def pf_init_bank(post, y_class_offsets: np.ndarray,
     over ``post`` (any posterior), every particle sampled (with
     replacement) from its class's training latents; each bank from its own
     draws."""
-    Pb = pf_cfg.num_particles
-    C = len(y_class_offsets) - 1
-    dev = post.X.device
-    classes = torch.as_tensor(_init_classes(Pb, C), device=dev).repeat(n_banks, 1)
-    offsets = torch.as_tensor(np.asarray(y_class_offsets, dtype=np.int64), device=dev)
-    lo = offsets[:-1][classes]
-    count = (offsets[1:] - offsets[:-1])[classes]
-    u = torch.rand(n_banks, Pb, generator=generator, device=dev)
-    idx = lo + torch.floor(u * count).to(torch.int64)
-    x = post.X[idx]
-    return PFState(
-        x=x,
-        x_prev=x,
-        c=classes,
-        log_w=torch.full((n_banks, Pb), -math.log(Pb), dtype=x.dtype, device=dev),
-        log_lik=torch.zeros(n_banks, Pb, dtype=x.dtype, device=dev),
-    )
+    with span("pf.init"):
+        Pb = pf_cfg.num_particles
+        C = len(y_class_offsets) - 1
+        dev = post.X.device
+        classes = torch.as_tensor(_init_classes(Pb, C), device=dev).repeat(n_banks, 1)
+        offsets = torch.as_tensor(np.asarray(y_class_offsets, dtype=np.int64), device=dev)
+        lo = offsets[:-1][classes]
+        count = (offsets[1:] - offsets[:-1])[classes]
+        u = torch.rand(n_banks, Pb, generator=generator, device=dev)
+        idx = lo + torch.floor(u * count).to(torch.int64)
+        x = post.X[idx]
+        return PFState(
+            x=x,
+            x_prev=x,
+            c=classes,
+            log_w=torch.full((n_banks, Pb), -math.log(Pb), dtype=x.dtype, device=dev),
+            log_lik=torch.zeros(n_banks, Pb, dtype=x.dtype, device=dev),
+        )
 
 
 def pf_init(post, y_class_offsets: np.ndarray,
@@ -310,90 +318,96 @@ def pf_step_bank(states: PFState, z: torch.Tensor, post, params: core.GPMDMParam
     it the step draws from ``generator``.  Multinomial resampling always
     needs ``generator``.
     """
-    if not isinstance(post, (core.Posterior, compressed.CompressedPosterior,
-                             sparse.SparsePosterior)):
-        raise TypeError(f"unknown posterior backend: {type(post)!r}")
-    B, Pb, d = states.x.shape
-    P = B * Pb
-    if noise is None:
-        if generator is None:
-            raise ValueError("pf_step needs injected noise or a generator")
-        noise = draw_noise(B, Pb, d, generator, states.x.dtype, states.x.device)
-    rank = _kernel_fns(pf_cfg)[2]
+    with span("pf.step"):
+        if not isinstance(post, (core.Posterior, compressed.CompressedPosterior,
+                                 sparse.SparsePosterior)):
+            raise TypeError(f"unknown posterior backend: {type(post)!r}")
+        B, Pb, d = states.x.shape
+        P = B * Pb
+        if noise is None:
+            if generator is None:
+                raise ValueError("pf_step needs injected noise or a generator")
+            noise = draw_noise(B, Pb, d, generator, states.x.dtype, states.x.device)
+        rank = _kernel_fns(pf_cfg)[2]
 
-    # 1. Markov class transition by inverse CDF against the particle's row.
-    C = log_T.shape[0]
-    cum_T = torch.cumsum(torch.exp(log_T), dim=1)  # (C, C), rows end at 1
-    row_cum = cum_T[states.c.reshape(P)]  # (P, C)
-    u_trans = noise.u_trans.reshape(P).to(cum_T.dtype)
-    c = torch.sum(u_trans[:, None] >= row_cum, dim=1)
-    c = torch.clamp(c, max=C - 1)
+        # 1. Markov class transition by inverse CDF against the particle's row.
+        with span("pf.transition"):
+            C = log_T.shape[0]
+            cum_T = torch.cumsum(torch.exp(log_T), dim=1)  # (C, C), rows end at 1
+            row_cum = cum_T[states.c.reshape(P)]  # (P, C)
+            u_trans = noise.u_trans.reshape(P).to(cum_T.dtype)
+            c = torch.sum(u_trans[:, None] >= row_cum, dim=1)
+            c = torch.clamp(c, max=C - 1)
 
-    # 2. Dynamics: every class's GP posterior for every particle, select by
-    #    class, sample.
-    x_flat = states.x.reshape(P, d)
-    xin = x_flat if cfg.dyn_back_step == 1 else torch.cat(
-        [x_flat, states.x_prev.reshape(P, d)], dim=1)
-    means, variances = _dynamics(post, params, xin.contiguous(), cfg, pf_cfg)
-    mean = _select_by_class(means, c)
-    var = torch.clamp(_select_by_class(variances, c), min=1e-12)
-    prop = mean + torch.sqrt(var) * noise.eps_dyn.reshape(P, d).to(mean.dtype)
-    x_new = x_flat + prop if cfg.dyn_target == "delta" else prop
+        # 2. Dynamics: every class's GP posterior for every particle, select by
+        #    class, sample.
+        with span("pf.dynamics"):
+            x_flat = states.x.reshape(P, d)
+            xin = x_flat if cfg.dyn_back_step == 1 else torch.cat(
+                [x_flat, states.x_prev.reshape(P, d)], dim=1)
+            means, variances = _dynamics(post, params, xin.contiguous(), cfg, pf_cfg)
+            mean = _select_by_class(means, c)
+            var = torch.clamp(_select_by_class(variances, c), min=1e-12)
+            prop = mean + torch.sqrt(var) * noise.eps_dyn.reshape(P, d).to(mean.dtype)
+            x_new = x_flat + prop if cfg.dyn_target == "delta" else prop
 
-    # 3. Observation weighting against each particle's own bank's
-    #    observation.
-    log_lik = _observation_log_lik(post, params, x_new, z, cfg, pf_cfg)
-    # dead-particle guard: a diverged particle gets likelihood zero
-    neg_inf = torch.tensor(-math.inf, dtype=log_lik.dtype, device=log_lik.device)
-    log_lik = torch.where(torch.isfinite(log_lik), log_lik, neg_inf).reshape(B, Pb)
-    log_w = log_lik + states.log_w if pf_cfg.accumulate_weights else log_lik
-    lse = torch.logsumexp(log_w, dim=1, keepdim=True)
-    # all-dead fallback: uniform weights instead of NaN
-    log_w = torch.where(torch.isfinite(lse), log_w - lse,
-                        torch.full_like(log_w, -math.log(Pb)))
+        # 3. Observation weighting against each particle's own bank's
+        #    observation.
+        with span("pf.observation"):
+            log_lik = _observation_log_lik(post, params, x_new, z, cfg, pf_cfg)
+            # dead-particle guard: a diverged particle gets likelihood zero
+            neg_inf = torch.tensor(-math.inf, dtype=log_lik.dtype, device=log_lik.device)
+            log_lik = torch.where(torch.isfinite(log_lik), log_lik, neg_inf).reshape(B, Pb)
+            log_w = log_lik + states.log_w if pf_cfg.accumulate_weights else log_lik
+            lse = torch.logsumexp(log_w, dim=1, keepdim=True)
+            # all-dead fallback: uniform weights instead of NaN
+            log_w = torch.where(torch.isfinite(lse), log_w - lse,
+                                torch.full_like(log_w, -math.log(Pb)))
 
-    # 4. Readouts before resampling, per bank.
-    w = torch.exp(log_w)
-    lw = log_lik + log_w
-    lw_max = torch.amax(lw, dim=1, keepdim=True)
-    lw = torch.where(torch.isfinite(lw_max), lw - lw_max, torch.zeros_like(lw))
-    elw = torch.exp(lw)
-    onehot = torch.nn.functional.one_hot(c, C).to(w.dtype).reshape(B, Pb, C)
-    class_scores = torch.bmm(elw[:, None, :], onehot)[:, 0]  # (B, C)
-    class_probs = class_scores / torch.sum(class_scores, dim=1, keepdim=True)
-    x_safe = torch.where(torch.isfinite(x_new), x_new, torch.zeros_like(x_new))
-    outputs = PFOutputs(
-        class_probs=class_probs,
-        log_likelihood=torch.sum(elw, dim=1),
-        state_mean=torch.sum(x_safe.reshape(B, Pb, d) * w[:, :, None], dim=1),
-        most_likely_class=torch.argmax(class_probs, dim=1),
-    )
+        # 4. Readouts before resampling, per bank.
+        with span("pf.readouts"):
+            w = torch.exp(log_w)
+            lw = log_lik + log_w
+            lw_max = torch.amax(lw, dim=1, keepdim=True)
+            lw = torch.where(torch.isfinite(lw_max), lw - lw_max, torch.zeros_like(lw))
+            elw = torch.exp(lw)
+            onehot = torch.nn.functional.one_hot(c, C).to(w.dtype).reshape(B, Pb, C)
+            class_scores = torch.bmm(elw[:, None, :], onehot)[:, 0]  # (B, C)
+            class_probs = class_scores / torch.sum(class_scores, dim=1, keepdim=True)
+            x_safe = torch.where(torch.isfinite(x_new), x_new, torch.zeros_like(x_new))
+            outputs = PFOutputs(
+                class_probs=class_probs,
+                log_likelihood=torch.sum(elw, dim=1),
+                state_mean=torch.sum(x_safe.reshape(B, Pb, d) * w[:, :, None], dim=1),
+                most_likely_class=torch.argmax(class_probs, dim=1),
+            )
 
-    # 5. Resampling: per-bank indices, then x, x_prev and c gathered
-    #    through one packed array by one flat offset gather.
-    packed = torch.cat([x_new, x_flat, c.to(x_new.dtype)[:, None]], dim=1)
-    if pf_cfg.resampling == "systematic":
-        idx = systematic_resample_indices(noise.u_res, log_w, w=w, rank=rank)
-    else:
-        if generator is None:
-            raise ValueError("multinomial resampling needs a generator")
-        idx = multinomial_resample_indices(generator, log_w)
-    offsets = Pb * torch.arange(B, device=idx.device, dtype=idx.dtype)
-    packed_r = packed[(idx + offsets[:, None]).reshape(P)]
-    new_log_w = torch.full_like(log_w, -math.log(Pb))
-    if pf_cfg.resample_threshold < 1.0:
-        ess = 1.0 / torch.clamp(torch.sum(w * w, dim=1), min=1e-38)  # (B,)
-        do = ess < pf_cfg.resample_threshold * Pb
-        packed_r = torch.where(do[:, None].expand(B, Pb).reshape(P, 1), packed_r, packed)
-        new_log_w = torch.where(do[:, None], new_log_w, log_w)
-    new_states = PFState(
-        x=packed_r[:, :d].reshape(B, Pb, d),
-        x_prev=packed_r[:, d:2 * d].reshape(B, Pb, d),
-        c=packed_r[:, 2 * d].to(torch.int64).reshape(B, Pb),
-        log_w=new_log_w,
-        log_lik=log_lik,
-    )
-    return new_states, outputs
+        # 5. Resampling: per-bank indices, then x, x_prev and c gathered
+        #    through one packed array by one flat offset gather.
+        with span("pf.resample"):
+            packed = torch.cat([x_new, x_flat, c.to(x_new.dtype)[:, None]], dim=1)
+            if pf_cfg.resampling == "systematic":
+                idx = systematic_resample_indices(noise.u_res, log_w, w=w, rank=rank)
+            else:
+                if generator is None:
+                    raise ValueError("multinomial resampling needs a generator")
+                idx = multinomial_resample_indices(generator, log_w)
+            offsets = Pb * torch.arange(B, device=idx.device, dtype=idx.dtype)
+            packed_r = packed[(idx + offsets[:, None]).reshape(P)]
+            new_log_w = torch.full_like(log_w, -math.log(Pb))
+            if pf_cfg.resample_threshold < 1.0:
+                ess = 1.0 / torch.clamp(torch.sum(w * w, dim=1), min=1e-38)  # (B,)
+                do = ess < pf_cfg.resample_threshold * Pb
+                packed_r = torch.where(do[:, None].expand(B, Pb).reshape(P, 1), packed_r, packed)
+                new_log_w = torch.where(do[:, None], new_log_w, log_w)
+            new_states = PFState(
+                x=packed_r[:, :d].reshape(B, Pb, d),
+                x_prev=packed_r[:, d:2 * d].reshape(B, Pb, d),
+                c=packed_r[:, 2 * d].to(torch.int64).reshape(B, Pb),
+                log_w=new_log_w,
+                log_lik=log_lik,
+            )
+        return new_states, outputs
 
 
 def pf_step(state: PFState, z: torch.Tensor, post,
@@ -470,18 +484,19 @@ def scan_bank_frames(states: PFState, Z: torch.Tensor, valid: torch.Tensor | Non
     """The frame loop of :func:`pf_scan_bank_masked`, frame t's randomness
     from ``frame_noise(t)`` (a ``PFNoise``, or None to draw from
     ``generator``)."""
-    outs = []
-    for t in range(Z.shape[1]):
-        new, out = pf_step_bank(states, Z[:, t], post, params, log_T, cfg, pf_cfg,
-                                noise=frame_noise(t), generator=generator)
-        if valid is not None:
-            v = valid[:, t]
-            keep = lambda a, b: torch.where(v.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
-            new = PFState(**{f.name: keep(getattr(new, f.name), getattr(states, f.name))
-                             for f in dataclasses.fields(PFState)})
-        states = new
-        outs.append(out)
-    return states, _stack(outs, dim=1)
+    with span("pf.scan"):
+        outs = []
+        for t in range(Z.shape[1]):
+            new, out = pf_step_bank(states, Z[:, t], post, params, log_T, cfg, pf_cfg,
+                                    noise=frame_noise(t), generator=generator)
+            if valid is not None:
+                v = valid[:, t]
+                keep = lambda a, b: torch.where(v.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+                new = PFState(**{f.name: keep(getattr(new, f.name), getattr(states, f.name))
+                                 for f in dataclasses.fields(PFState)})
+            states = new
+            outs.append(out)
+        return states, _stack(outs, dim=1)
 
 
 def pf_scan_bank(states: PFState, Z: torch.Tensor, post,
@@ -537,65 +552,66 @@ def resolve_posterior(gpmdm, posterior="auto"):
     - ``'compressed'``: ``gpmdm.compressed_posterior()``.
     - a posterior object: used as it is.
     """
-    if posterior is None or (isinstance(posterior, str) and posterior == "exact"):
-        gpmdm._require_posterior()
-        return gpmdm.posterior
-    if not isinstance(posterior, str):
-        return posterior
-    if posterior == "compressed":
-        return gpmdm.compressed_posterior()
-    if posterior != "auto":
-        raise ValueError(f"posterior={posterior!r}: expected 'auto', 'exact', "
-                         "'compressed', or a posterior object")
-    rec = gpmdm._deploy_recommendation
-    if rec:
-        fam = rec.get("family")
-        if fam == "sparsified" and gpmdm._deploys_core_posterior:
-            return gpmdm.sparsified_posterior(
-                int(rec["M"]), n_inducing_x=None if rec.get("Mx") is None else int(rec["Mx"]),
-                method=rec.get("method", "stride"))
-        if fam == "compressed":
-            return gpmdm.compressed_posterior(rank_y=rec.get("rank_y"),
-                                              rank_x=rec.get("rank_x"))
-        if fam == "exact":
+    with span("pf.resolve_posterior"):
+        if posterior is None or (isinstance(posterior, str) and posterior == "exact"):
             gpmdm._require_posterior()
             return gpmdm.posterior
-        if fam == "sparsified":
+        if not isinstance(posterior, str):
+            return posterior
+        if posterior == "compressed":
+            return gpmdm.compressed_posterior()
+        if posterior != "auto":
+            raise ValueError(f"posterior={posterior!r}: expected 'auto', 'exact', "
+                             "'compressed', or a posterior object")
+        rec = gpmdm._deploy_recommendation
+        if rec:
+            fam = rec.get("family")
+            if fam == "sparsified" and gpmdm._deploys_core_posterior:
+                return gpmdm.sparsified_posterior(
+                    int(rec["M"]), n_inducing_x=None if rec.get("Mx") is None else int(rec["Mx"]),
+                    method=rec.get("method", "stride"))
+            if fam == "compressed":
+                return gpmdm.compressed_posterior(rank_y=rec.get("rank_y"),
+                                                  rank_x=rec.get("rank_x"))
+            if fam == "exact":
+                gpmdm._require_posterior()
+                return gpmdm.posterior
+            if fam == "sparsified":
+                warnings.warn(
+                    "deploy recommendation 'sparsified' requires an exact-family model "
+                    f"(GPMDM.sparsified_posterior); {type(gpmdm).__name__} cannot honor it "
+                    "— check for a checkpoint/model mismatch.  Falling back to the "
+                    "size-threshold policy.", stacklevel=3)
+            else:
+                warnings.warn(f"ignoring unknown deploy recommendation {rec!r}; "
+                              "falling back to the size-threshold policy", stacklevel=3)
+        N = gpmdm.layout.Ny
+        if not gpmdm._deploys_core_posterior or N <= AUTO_COMPRESS_N:
+            gpmdm._require_posterior()
+            return gpmdm.posterior
+        cp = gpmdm.compressed_posterior()
+        if cp.rank_y > AUTO_COMPRESS_MAX_Q_FRAC * N:
+            # the cache entry stays: GPMDM_PF re-resolves 'auto' on every call,
+            # and evicting would re-run the eigendecomposition each time;
+            # save_model leaves such an entry out instead
             warnings.warn(
-                "deploy recommendation 'sparsified' requires an exact-family model "
-                f"(GPMDM.sparsified_posterior); {type(gpmdm).__name__} cannot honor it "
-                "— check for a checkpoint/model mismatch.  Falling back to the "
-                "size-threshold policy.", stacklevel=3)
-        else:
-            warnings.warn(f"ignoring unknown deploy recommendation {rec!r}; "
-                          "falling back to the size-threshold policy", stacklevel=3)
-    N = gpmdm.layout.Ny
-    if not gpmdm._deploys_core_posterior or N <= AUTO_COMPRESS_N:
-        gpmdm._require_posterior()
-        return gpmdm.posterior
-    cp = gpmdm.compressed_posterior()
-    if cp.rank_y > AUTO_COMPRESS_MAX_Q_FRAC * N:
-        # the cache entry stays: GPMDM_PF re-resolves 'auto' on every call,
-        # and evicting would re-run the eigendecomposition each time;
-        # save_model leaves such an entry out instead
-        warnings.warn(
-            f"posterior='auto': spectral quad rank {cp.rank_y}/{N} is past the "
-            "q=N/2 FLOP-parity bound (near-identity Gram); compression cannot "
-            "pay — deploying the EXACT posterior.  Pass posterior='compressed' "
-            "or a compressed_posterior(rank_y=...) object to override.",
-            stacklevel=3)
-        gpmdm._require_posterior()
-        return gpmdm.posterior
-    if cp.rank_y > AUTO_COMPRESS_FLAT_Q_FRAC * N:
-        warnings.warn(
-            f"posterior='auto': spectral quad rank {cp.rank_y}/{N} is in the "
-            f"flat-spectrum band (> {AUTO_COMPRESS_FLAT_Q_FRAC:.0%} of Ny): "
-            "compression still deploys (it beat exact on both speed and accuracy "
-            "on the measured flat-spectrum asset) but a rank this high usually "
-            "means an early-stopped or drifting model — validate with an "
-            "accuracy guard (utils.asset_guard.guard_report).",
-            stacklevel=3)
-    return cp
+                f"posterior='auto': spectral quad rank {cp.rank_y}/{N} is past the "
+                "q=N/2 FLOP-parity bound (near-identity Gram); compression cannot "
+                "pay — deploying the EXACT posterior.  Pass posterior='compressed' "
+                "or a compressed_posterior(rank_y=...) object to override.",
+                stacklevel=3)
+            gpmdm._require_posterior()
+            return gpmdm.posterior
+        if cp.rank_y > AUTO_COMPRESS_FLAT_Q_FRAC * N:
+            warnings.warn(
+                f"posterior='auto': spectral quad rank {cp.rank_y}/{N} is in the "
+                f"flat-spectrum band (> {AUTO_COMPRESS_FLAT_Q_FRAC:.0%} of Ny): "
+                "compression still deploys (it beat exact on both speed and accuracy "
+                "on the measured flat-spectrum asset) but a rank this high usually "
+                "means an early-stopped or drifting model — validate with an "
+                "accuracy guard (utils.asset_guard.guard_report).",
+                stacklevel=3)
+        return cp
 
 
 def warn_if_unsafe_exact(post, pf_cfg: PFConfig) -> None:

@@ -26,6 +26,8 @@ import sys
 import tempfile
 from pathlib import Path
 
+from ..utils.profiling import span
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "gp_posterior.cu", _CSRC / "resample_rank.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -101,10 +103,12 @@ def build(defines: tuple[str, ...] = ()) -> Path:
 
 @functools.lru_cache(maxsize=None)
 def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The built kernel library, with every launcher's ctypes signature set."""
-    lib = ctypes.CDLL(str(build(defines)))
-    for name, (restype, argtypes) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
-    return lib
+    """The built kernel library, with every launcher's ctypes signature set;
+    its build or load runs once a process, in the span ``ops.library``."""
+    with span("ops.library"):
+        lib = ctypes.CDLL(str(build(defines)))
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        return lib

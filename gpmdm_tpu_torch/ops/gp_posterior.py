@@ -23,9 +23,11 @@ Each public function has two versions:
 The kernels take and compute IEEE fp32; the plain versions run in their
 inputs' dtype.  Both sum squared distances by per-dimension differences,
 never by the norm expansion, and mask padded training rows to exactly 0.
-``LAUNCHES`` counts kernel launches per kernel (K1's under
-``fused_x_posterior``, from either of its functions), so a run can show
-that it went through the kernels.
+Each launch on the card runs in the span ``ops.k1`` (K1 and K1') or
+``ops.k2`` and adds one to the counter ``ops.k1.launches`` (K1, from
+either of its functions), ``ops.k1p.launches`` (K1') or
+``ops.k2.launches`` (``utils.profiling``), so a run can show that it went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -35,16 +37,14 @@ import functools
 
 import torch
 
-#: Kernel launches per kernel since the last ``reset_launches``.
-LAUNCHES = {"fused_x_posterior": 0, "fused_rbf_posterior": 0, "fused_obs_loglik": 0}
+from ..utils.profiling import counter, span
 
 #: Particles per block that the launchers take; 0 lets them choose from P.
 TILES = (0, 64, 128)
 
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+#: The launch counter of each of K1 and K1'.
+_LAUNCH_COUNTERS = {"fused_x_posterior": "ops.k1.launches",
+                    "fused_rbf_posterior": "ops.k1p.launches"}
 
 
 # ----------------------------------------------------------- plain versions
@@ -177,35 +177,36 @@ def _posterior_cuda(name, Xtrain, Xstar, A, Kinv, inv_ls, lin_w, n_valid,
     (a build variant's library) are for measurement."""
     from ._build import library
 
-    C, N, d = Xtrain.shape
-    P, Dout = Xstar.shape[0], A.shape[2]
-    dev = Xstar.device
-    shapes = dict(Xtrain=(Xtrain, (C, N, d)), Xstar=(Xstar, (P, d)), A=(A, (C, N, Dout)),
-                  Kinv=(Kinv, (C, N, N)), inv_lengthscales=(inv_ls, (d,)))
-    if has_linear:
-        shapes["lin_w"] = (lin_w, (d + 1,))
-    _check(name, dev, **shapes)
-    _check_tile(name, tile)
-    if not 0 <= n_valid <= N or N < 1 or C < 1:
-        raise ValueError(f"{name}: need 1 <= C, 1 <= N and 0 <= n_valid <= N, got C={C}, "
-                         f"N={N}, n_valid={n_valid}")
-    mean = torch.empty(C, P, Dout, dtype=torch.float32, device=dev)
-    quad = torch.empty(C, P, dtype=torch.float32, device=dev)
-    if P == 0:
+    with span("ops.k1"):
+        C, N, d = Xtrain.shape
+        P, Dout = Xstar.shape[0], A.shape[2]
+        dev = Xstar.device
+        shapes = dict(Xtrain=(Xtrain, (C, N, d)), Xstar=(Xstar, (P, d)), A=(A, (C, N, Dout)),
+                      Kinv=(Kinv, (C, N, N)), inv_lengthscales=(inv_ls, (d,)))
+        if has_linear:
+            shapes["lin_w"] = (lin_w, (d + 1,))
+        _check(name, dev, **shapes)
+        _check_tile(name, tile)
+        if not 0 <= n_valid <= N or N < 1 or C < 1:
+            raise ValueError(f"{name}: need 1 <= C, 1 <= N and 0 <= n_valid <= N, got C={C}, "
+                             f"N={N}, n_valid={n_valid}")
+        mean = torch.empty(C, P, Dout, dtype=torch.float32, device=dev)
+        quad = torch.empty(C, P, dtype=torch.float32, device=dev)
+        if P == 0:
+            return mean, quad
+        lib = library() if lib is None else lib
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            tp, splits, one, partial, ticket = _plan(lib, name, N, Dout, P, tile, dev, stream,
+                                                     C, one_pass and has_linear)
+            rc = lib.gp_posterior_launch(
+                Xtrain.data_ptr(), Xstar.data_ptr(), inv_ls.data_ptr(),
+                lin_w.data_ptr() if has_linear else None, A.data_ptr(), Kinv.data_ptr(),
+                mean.data_ptr(), quad.data_ptr(), N, P, d, Dout, n_valid, C,
+                int(has_linear), tp, one, splits, _ptr(partial), _ptr(ticket), stream)
+        _raise_on_error(name, rc)
+        counter(_LAUNCH_COUNTERS[name])
         return mean, quad
-    lib = library() if lib is None else lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        tp, splits, one, partial, ticket = _plan(lib, name, N, Dout, P, tile, dev, stream,
-                                                 C, one_pass and has_linear)
-        rc = lib.gp_posterior_launch(
-            Xtrain.data_ptr(), Xstar.data_ptr(), inv_ls.data_ptr(),
-            lin_w.data_ptr() if has_linear else None, A.data_ptr(), Kinv.data_ptr(),
-            mean.data_ptr(), quad.data_ptr(), N, P, d, Dout, n_valid, C,
-            int(has_linear), tp, one, splits, _ptr(partial), _ptr(ticket), stream)
-    _raise_on_error(name, rc)
-    LAUNCHES[name] += 1
-    return mean, quad
 
 
 def fused_rbf_posterior(Xtrain, Xstar, Ay, Kinv, inv_lengthscales):
@@ -272,33 +273,34 @@ def _obs_loglik_cuda(Xtrain, Xstar, Ay, Kinv, inv_lengthscales, z, lam2, tile=0,
     variant's library) are for measurement."""
     from ._build import library
 
-    name = "fused_obs_loglik"
-    N, d = Xtrain.shape
-    P, D = Xstar.shape[0], Ay.shape[1]
-    B = z.shape[0] if z.dim() == 2 else 1
-    if B < 1 or P % B:
-        raise ValueError(f"{name}: {P} particles do not split into {B} banks")
-    dev = Xstar.device
-    _check(name, dev, Xtrain=(Xtrain, (N, d)), Xstar=(Xstar, (P, d)),
-           Ay=(Ay, (N, D)), Kinv=(Kinv, (N, N)),
-           inv_lengthscales=(inv_lengthscales, (d,)),
-           z=(z, (B, D) if z.dim() == 2 else (D,)), lam2=(lam2, (D,)))
-    _check_tile(name, tile)
-    if N < 1:
-        raise ValueError(f"{name}: need at least one training row")
-    quad = torch.empty(P, dtype=torch.float32, device=dev)
-    qres = torch.empty(P, dtype=torch.float32, device=dev)
-    if P == 0:
+    with span("ops.k2"):
+        name = "fused_obs_loglik"
+        N, d = Xtrain.shape
+        P, D = Xstar.shape[0], Ay.shape[1]
+        B = z.shape[0] if z.dim() == 2 else 1
+        if B < 1 or P % B:
+            raise ValueError(f"{name}: {P} particles do not split into {B} banks")
+        dev = Xstar.device
+        _check(name, dev, Xtrain=(Xtrain, (N, d)), Xstar=(Xstar, (P, d)),
+               Ay=(Ay, (N, D)), Kinv=(Kinv, (N, N)),
+               inv_lengthscales=(inv_lengthscales, (d,)),
+               z=(z, (B, D) if z.dim() == 2 else (D,)), lam2=(lam2, (D,)))
+        _check_tile(name, tile)
+        if N < 1:
+            raise ValueError(f"{name}: need at least one training row")
+        quad = torch.empty(P, dtype=torch.float32, device=dev)
+        qres = torch.empty(P, dtype=torch.float32, device=dev)
+        if P == 0:
+            return quad, qres
+        lib = library() if lib is None else lib
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            tp, splits, _, partial, ticket = _plan(lib, name, N, D, P, tile, dev, stream)
+            rc = lib.obs_loglik_launch(
+                Xtrain.data_ptr(), Xstar.data_ptr(), inv_lengthscales.data_ptr(),
+                Ay.data_ptr(), Kinv.data_ptr(), z.data_ptr(), lam2.data_ptr(),
+                quad.data_ptr(), qres.data_ptr(), N, P, d, D, P // B, tp, splits,
+                _ptr(partial), _ptr(ticket), stream)
+        _raise_on_error(name, rc)
+        counter("ops.k2.launches")
         return quad, qres
-    lib = library() if lib is None else lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        tp, splits, _, partial, ticket = _plan(lib, name, N, D, P, tile, dev, stream)
-        rc = lib.obs_loglik_launch(
-            Xtrain.data_ptr(), Xstar.data_ptr(), inv_lengthscales.data_ptr(),
-            Ay.data_ptr(), Kinv.data_ptr(), z.data_ptr(), lam2.data_ptr(),
-            quad.data_ptr(), qres.data_ptr(), N, P, d, D, P // B, tp, splits,
-            _ptr(partial), _ptr(ticket), stream)
-    _raise_on_error(name, rc)
-    LAUNCHES[name] += 1
-    return quad, qres

@@ -11,21 +11,17 @@ Counterpart of ``rank_pallas`` in ``tools/exp_resample_rank_pallas.py``
 - ``resample_rank_plain``: the same function in PyTorch, a histogram of
   each bank's values and a cumulative sum.
 
-Both count exactly, so they agree bit for bit.  ``LAUNCHES`` counts kernel
-launches, so a run can show that it went through the kernel.
+Both count exactly, so they agree bit for bit.  Each launch on the card
+runs in the span ``ops.k3`` and adds one to the counter
+``ops.k3.launches`` (``utils.profiling``), so a run can show that it went
+through the kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-#: Kernel launches since the last ``reset_launches``.
-LAUNCHES = {"resample_rank": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+from ..utils.profiling import counter, span
 
 
 def resample_rank_plain(s: torch.Tensor) -> torch.Tensor:
@@ -54,22 +50,23 @@ def _rank_cuda(s: torch.Tensor, lib=None) -> torch.Tensor:
     measurement."""
     from ._build import library
 
-    name = "resample_rank"
-    if s.dtype != torch.int32:
-        raise TypeError(f"{name}: s must be int32, got {s.dtype}")
-    if s.dim() != 2:
-        raise ValueError(f"{name}: s must be (B, Pb), got shape {tuple(s.shape)}")
-    if not s.is_contiguous():
-        raise ValueError(f"{name}: s must be contiguous")
-    B, Pb = s.shape
-    idx = torch.empty(B, Pb, dtype=torch.int64, device=s.device)
-    if B == 0 or Pb == 0:
+    with span("ops.k3"):
+        name = "resample_rank"
+        if s.dtype != torch.int32:
+            raise TypeError(f"{name}: s must be int32, got {s.dtype}")
+        if s.dim() != 2:
+            raise ValueError(f"{name}: s must be (B, Pb), got shape {tuple(s.shape)}")
+        if not s.is_contiguous():
+            raise ValueError(f"{name}: s must be contiguous")
+        B, Pb = s.shape
+        idx = torch.empty(B, Pb, dtype=torch.int64, device=s.device)
+        if B == 0 or Pb == 0:
+            return idx
+        lib = library() if lib is None else lib
+        with torch.cuda.device(s.device):
+            stream = torch.cuda.current_stream(s.device).cuda_stream
+            rc = lib.resample_rank_launch(s.data_ptr(), idx.data_ptr(), B, Pb, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {rc}")
+        counter("ops.k3.launches")
         return idx
-    lib = library() if lib is None else lib
-    with torch.cuda.device(s.device):
-        stream = torch.cuda.current_stream(s.device).cuda_stream
-        rc = lib.resample_rank_launch(s.data_ptr(), idx.data_ptr(), B, Pb, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {rc}")
-    LAUNCHES[name] += 1
-    return idx

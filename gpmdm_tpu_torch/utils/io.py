@@ -45,6 +45,7 @@ from ..models.compressed import CompressedPosterior
 from ..models.gpmdm import GPMDM, params_from_numpy
 from ..models.sparse_gpmdm import SparseGPMDM
 from ..train.trainer import AdamState, LBFGSState
+from .profiling import span
 
 FORMAT_VERSION = 1
 
@@ -161,87 +162,89 @@ def load_model(*args, device="cuda") -> GPMDM:
     Called as ``load_model(file_path, device)`` or, as the JAX package's
     is, ``load_model(cls, file_path, device=...)``: the class a checkpoint
     loads as is its ``model_class``, whatever ``cls`` says."""
-    if len(args) == 2 and isinstance(args[0], type):
-        file_path = args[1]
-    elif len(args) in (1, 2):
-        file_path = args[0]
-        if len(args) == 2:
-            device = args[1]
-    else:
-        raise TypeError("load_model(file_path, device='cuda') or "
-                        "load_model(cls, file_path, device='cuda')")
-    file_path = Path(file_path)
-    with np.load(file_path) as data:
-        meta = json.loads(bytes(data["meta_json"]).decode("utf-8"))
-        if meta.get("format_version") != FORMAT_VERSION:
-            raise ValueError(
-                f"{file_path}: checkpoint format {meta.get('format_version')!r}, "
-                f"this reader takes {FORMAT_VERSION}"
-            )
-        model_class = meta.get("model_class", "GPMDM")
-        if model_class not in _CLASSES:
-            raise ValueError(f"{file_path}: unknown model_class {model_class!r}")
-        if not meta["initialized"]:
-            raise ValueError(f"{file_path}: checkpoint holds an untrained model")
-        cfg = GPMDMConfig.from_dict(meta["config"])
-        model = _CLASSES[model_class].from_config(cfg, device=device,
-                                                  init_hypers=meta.get("init_hypers"))
-        fields = meta.get("param_fields", list(core.PARAM_FIELDS))
-        want = sparse.SPARSE_PARAM_FIELDS if model_class == "SparseGPMDM" else core.PARAM_FIELDS
-        if tuple(fields) != want:
-            raise ValueError(f"{file_path}: unexpected parameter fields {fields} "
-                             f"for {model_class!r}")
-        if isinstance(model, SparseGPMDM):
-            model.n_inducing_y = int(meta["n_inducing_y"])
-            model.n_inducing_x = int(meta["n_inducing_x"])
+    with span("io.load_model"):
+        if len(args) == 2 and isinstance(args[0], type):
+            file_path = args[1]
+        elif len(args) in (1, 2):
+            file_path = args[0]
+            if len(args) == 2:
+                device = args[1]
+        else:
+            raise TypeError("load_model(file_path, device='cuda') or "
+                            "load_model(cls, file_path, device='cuda')")
+        file_path = Path(file_path)
+        with np.load(file_path) as data:
+            meta = json.loads(bytes(data["meta_json"]).decode("utf-8"))
+            if meta.get("format_version") != FORMAT_VERSION:
+                raise ValueError(
+                    f"{file_path}: checkpoint format {meta.get('format_version')!r}, "
+                    f"this reader takes {FORMAT_VERSION}"
+                )
+            model_class = meta.get("model_class", "GPMDM")
+            if model_class not in _CLASSES:
+                raise ValueError(f"{file_path}: unknown model_class {model_class!r}")
+            if not meta["initialized"]:
+                raise ValueError(f"{file_path}: checkpoint holds an untrained model")
+            cfg = GPMDMConfig.from_dict(meta["config"])
+            model = _CLASSES[model_class].from_config(cfg, device=device,
+                                                      init_hypers=meta.get("init_hypers"))
+            fields = meta.get("param_fields", list(core.PARAM_FIELDS))
+            want = sparse.SPARSE_PARAM_FIELDS if model_class == "SparseGPMDM" else core.PARAM_FIELDS
+            if tuple(fields) != want:
+                raise ValueError(f"{file_path}: unexpected parameter fields {fields} "
+                                 f"for {model_class!r}")
+            if isinstance(model, SparseGPMDM):
+                model.n_inducing_y = int(meta["n_inducing_y"])
+                model.n_inducing_x = int(meta["n_inducing_x"])
+            if isinstance(model, BCGPMDM):
+                model._back_ls_arg = cfg.back_constraint_ls
+            for c, n_seq in enumerate(meta["n_sequences_per_class"]):
+                for i in range(n_seq):
+                    model.add_data(data[f"obs_{c}_{i}"], c)
+            host_params = {f: np.asarray(data[f"param_{f}"], dtype=np.float64) for f in fields}
+            opt_leaves = None
+            opt_name = meta.get("optimizer_name", "adam")
+            if meta.get("has_opt_state"):
+                if opt_name not in ("adam", "lbfgs"):
+                    raise ValueError(f"{file_path}: unknown optimizer_name {opt_name!r}")
+                opt_leaves = [data[f"opt_{i}"] for i in range(meta["n_opt_leaves"])]
+            post_arrays = None
+            if meta.get("posterior_class") == "SparsePosterior":
+                post_arrays = {f: data[f"post_{f}"] for f in sparse.POSTERIOR_FIELDS}
+            comp = _read_cache(
+                data, meta, "comp", "compressed", _COMP_FIELDS,
+                lambda a: CompressedPosterior.from_numpy(a, model.dtype, model.device))
+            # the sparsified cache holds distillations of an exact model by
+            # construction
+            spc = _read_cache(data, meta, "sparsified", "sparsified", sparse.POSTERIOR_FIELDS,
+                              lambda a: sparse.SparsePosterior.from_numpy(
+                                  a, model.dtype, model.device, distilled=True))
         if isinstance(model, BCGPMDM):
-            model._back_ls_arg = cfg.back_constraint_ls
-        for c, n_seq in enumerate(meta["n_sequences_per_class"]):
-            for i in range(n_seq):
-                model.add_data(data[f"obs_{c}_{i}"], c)
-        host_params = {f: np.asarray(data[f"param_{f}"], dtype=np.float64) for f in fields}
-        opt_leaves = None
-        opt_name = meta.get("optimizer_name", "adam")
-        if meta.get("has_opt_state"):
-            if opt_name not in ("adam", "lbfgs"):
-                raise ValueError(f"{file_path}: unknown optimizer_name {opt_name!r}")
-            opt_leaves = [data[f"opt_{i}"] for i in range(meta["n_opt_leaves"])]
-        post_arrays = None
-        if meta.get("posterior_class") == "SparsePosterior":
-            post_arrays = {f: data[f"post_{f}"] for f in sparse.POSTERIOR_FIELDS}
-        comp = _read_cache(data, meta, "comp", "compressed", _COMP_FIELDS,
-                           lambda a: CompressedPosterior.from_numpy(a, model.dtype, model.device))
-        # the sparsified cache holds distillations of an exact model by
-        # construction
-        spc = _read_cache(data, meta, "sparsified", "sparsified", sparse.POSTERIOR_FIELDS,
-                          lambda a: sparse.SparsePosterior.from_numpy(
-                              a, model.dtype, model.device, distilled=True))
-    if isinstance(model, BCGPMDM):
-        # the X slot holds W: X = K_b W, and the exact posterior of it
-        model.layout = model._build_layout()
-        model.params = params_from_numpy(host_params, model.dtype, model.device)
-        model._W = model.params.X
-        model._materialize()
-    elif post_arrays is None:
-        model.set_params(host_params, lazy=True)
-    else:
-        # the persisted factors: no O(N M^2) host build
-        model.layout = model._build_layout()
-        model.params = params_from_numpy(host_params, model.dtype, model.device)
-        model.posterior = sparse.SparsePosterior.from_numpy(post_arrays, model.dtype,
-                                                            model.device)
-    # after the refresh, which empties the caches and drops the verdict:
-    # all were made from these parameters
-    model._compressed_cache, model._sparsified_cache = comp, spc
-    model._deploy_recommendation = meta.get("deploy_recommendation") or None
-    model._guard_receipt = meta.get("guard_receipt") or None
-    if opt_leaves is not None:
-        state_cls = LBFGSState if opt_name == "lbfgs" else AdamState
-        model._opt_state = state_cls.from_numpy(opt_leaves, model.dtype, model.device,
-                                                type(model.params))
-        model._opt_name = opt_name
-        model._lbfgs_memory = int(meta.get("lbfgs_memory", 10))
-    return model
+            # the X slot holds W: X = K_b W, and the exact posterior of it
+            model.layout = model._build_layout()
+            model.params = params_from_numpy(host_params, model.dtype, model.device)
+            model._W = model.params.X
+            model._materialize()
+        elif post_arrays is None:
+            model.set_params(host_params, lazy=True)
+        else:
+            # the persisted factors: no O(N M^2) host build
+            model.layout = model._build_layout()
+            model.params = params_from_numpy(host_params, model.dtype, model.device)
+            model.posterior = sparse.SparsePosterior.from_numpy(post_arrays, model.dtype,
+                                                                model.device)
+        # after the refresh, which empties the caches and drops the verdict:
+        # all were made from these parameters
+        model._compressed_cache, model._sparsified_cache = comp, spc
+        model._deploy_recommendation = meta.get("deploy_recommendation") or None
+        model._guard_receipt = meta.get("guard_receipt") or None
+        if opt_leaves is not None:
+            state_cls = LBFGSState if opt_name == "lbfgs" else AdamState
+            model._opt_state = state_cls.from_numpy(opt_leaves, model.dtype, model.device,
+                                                    type(model.params))
+            model._opt_name = opt_name
+            model._lbfgs_memory = int(meta.get("lbfgs_memory", 10))
+        return model
 
 
 def load_torch_model(file_path, device="cuda") -> GPMDM:

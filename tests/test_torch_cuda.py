@@ -21,6 +21,7 @@ import torch
 
 from gpmdm_tpu_torch.ops import gp_posterior as tgp
 from gpmdm_tpu_torch.ops import resample as rs
+from gpmdm_tpu_torch.utils import profiling
 
 D_OUT = 5
 CASES = [(37, 50, 2), (130, 300, 3), (37, 300, 3), (300, 50, 2), (480, 10_000, 2),
@@ -47,6 +48,12 @@ def _t(a, device):
     return torch.as_tensor(a, device=device)
 
 
+def _launches():
+    """The kernel launch counters of the program's registry
+    (``utils.profiling``) since its last ``reset``."""
+    return {k: v for k, v in profiling.snapshot()["counters"].items() if k.endswith(".launches")}
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -59,7 +66,7 @@ def test_cuda_kernels_match_plain(N, P, d):
     dev = _cuda_or_skip()
     x = _inputs(N, P, d, seed=7)
     t = {k: _t(v, dev) for k, v in x.items()}
-    tgp.reset_launches()
+    profiling.reset()
     pairs = [
         (tgp.fused_rbf_posterior, tgp.fused_rbf_posterior_plain, ("Xt", "Xs", "A", "Kinv", "inv_ls"), ()),
         (tgp.fused_x_posterior, tgp.fused_x_posterior_plain,
@@ -74,8 +81,7 @@ def test_cuda_kernels_match_plain(N, P, d):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
-    assert tgp.LAUNCHES == {"fused_x_posterior": 1, "fused_rbf_posterior": 1,
-                            "fused_obs_loglik": 1}
+    assert _launches() == {"ops.k1.launches": 1, "ops.k1p.launches": 1, "ops.k2.launches": 1}
 
 
 @pytest.mark.gpu
@@ -159,13 +165,13 @@ def test_cuda_resample_rank_matches_plain(B, Pb, order):
     if order == "unsorted":
         s = rng.permuted(s, axis=1)
     st = torch.as_tensor(s, device=dev)
-    rs.reset_launches()
+    profiling.reset()
     got = rs.resample_rank(st)
     want = rs.resample_rank_plain(st)
     torch.cuda.synchronize()
     assert got.dtype == torch.int64 and got.shape == (B, Pb)
     assert torch.equal(got, want)
-    assert rs.LAUNCHES == {"resample_rank": 1}
+    assert _launches() == {"ops.k3.launches": 1}
 
 
 @pytest.mark.gpu
@@ -293,9 +299,9 @@ def test_cuda_x_posterior_classes_match_plain(C, N, P, d):
 
     t = _class_inputs(C, N, P, d, seed=20)
     args = (t["Xt"], t["Xs"], t["A"], t["Kinv"], t["inv_ls"], t["lin_w"], N - 3)
-    tgp.reset_launches()
+    profiling.reset()
     got = tgp.fused_x_posterior_classes(*args)
-    assert tgp.LAUNCHES["fused_x_posterior"] == 1
+    assert _launches() == {"ops.k1.launches": 1}
     assert got[0].shape == (C, P, D_OUT) and got[1].shape == (C, P)
     _check_classes_against_f64(t, got, N - 3)
     again = tgp.fused_x_posterior_classes(*args)
@@ -423,3 +429,45 @@ def test_cuda_sparse_predictions_match_f64(asset, quad):
             err = (gg.cpu().double() - w).abs().max().item()
             ref = (c32.double() - w).abs().max().item()
             assert err <= 4 * ref + 1e-6 * w.abs().max().item(), (name, label, err, ref)
+
+
+@pytest.mark.gpu
+def test_cuda_spans_stay_on_the_host_timeline():
+    """Under ``torch.profiler`` on the card the program's spans are host
+    operations: no event named after one has the device type CUDA, where
+    it would count as a device operation (a ``record_function`` range
+    would: the profiler copies user annotations onto the device's
+    timeline)."""
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpmdm_tpu_torch import PFConfig
+    from gpmdm_tpu_torch.filter import particle_filter as pf
+    from gpmdm_tpu_torch.utils.io import load_model
+
+    dev = _cuda_or_skip()
+    m = load_model(Path(__file__).resolve().parents[1] / "bench_assets" / "bench_model.npz", "cuda")
+    post = pf.resolve_posterior(m, "auto")
+    cfg = PFConfig(num_particles=1000)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    states = pf.pf_init_bank(post, m.layout.y_class_offsets, g, cfg, 4)
+    log_T = torch.log(torch.tensor([[0.9, 0.1], [0.1, 0.9]], device=dev))
+    Z = torch.zeros(4, 3, m.D, device=dev)
+
+    def scan():
+        pf.pf_scan_bank(states, Z, post, m.params, log_T, m.config, cfg, generator=g)
+        torch.cuda.synchronize()
+
+    profiling.reset()
+    scan()
+    names = set(profiling.snapshot()["spans"])
+    assert {"pf.scan", "pf.step", "pf.dynamics", "ops.k1", "ops.k2", "ops.k3"} <= names
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        scan()
+    events = prof.events()
+    assert names <= {e.name for e in events if e.device_type == DeviceType.CPU}
+    assert not names & {e.name for e in events if e.device_type == DeviceType.CUDA}
+    assert any(e.device_type == DeviceType.CUDA for e in events)

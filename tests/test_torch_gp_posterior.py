@@ -16,6 +16,7 @@ import torch
 
 from gpmdm_tpu.ops.pallas import gp_posterior as jgp
 from gpmdm_tpu_torch.ops import gp_posterior as tgp
+from gpmdm_tpu_torch.utils import profiling
 
 RTOL, ATOL = 1e-5, 1e-6
 D_OUT = 5
@@ -147,13 +148,13 @@ def test_masked_rows_are_exactly_zero():
 
 
 def test_cpu_wrappers_count_no_launches():
-    tgp.reset_launches()
+    profiling.reset()
     x = _inputs(20, 10, 2, seed=6)
     tgp.fused_obs_loglik(*(_t(x[k]) for k in ("Xt", "Xs", "A", "Kinv", "inv_ls", "z", "lam2")))
     tgp.fused_x_posterior(*(_t(x[k]) for k in ("Xt", "Xs", "A", "Kinv", "inv_ls", "lin_w")), 20)
     tgp.fused_x_posterior_classes(*(_t(x[k])[None] if k in ("Xt", "A", "Kinv") else _t(x[k])
                                     for k in ("Xt", "Xs", "A", "Kinv", "inv_ls", "lin_w")), 20)
-    assert all(v == 0 for v in tgp.LAUNCHES.values())
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
 
 
 def test_launcher_codes_become_clear_errors():

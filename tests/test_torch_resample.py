@@ -29,6 +29,7 @@ import torch
 from gpmdm_tpu.filter import particle_filter as jpf
 from gpmdm_tpu_torch.filter import particle_filter as tpf
 from gpmdm_tpu_torch.ops import resample as rs
+from gpmdm_tpu_torch.utils import profiling
 
 TOOL = Path(__file__).resolve().parents[1] / "tools" / "exp_resample_rank_pallas.py"
 
@@ -69,9 +70,9 @@ def test_rank_plain_matches_rank_pallas_and_rank_xla(tool, P, order):
 def test_rank_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
     rng = np.random.default_rng(1)
     s = torch.as_tensor(np.stack([_systematic_s(rng, 300) for _ in range(3)]))
-    rs.reset_launches()
+    profiling.reset()
     torch.testing.assert_close(rs.resample_rank(s), rs.resample_rank_plain(s))
-    assert rs.LAUNCHES == {"resample_rank": 0}
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
 
 
 def test_rank_plain_clamps_like_the_comparison():

@@ -1,5 +1,6 @@
 """The port's utilities on the CPU: ``utils.profiling`` (the torch.profiler
-trace, its annotations, the stage timer), ``utils.debug`` (the finiteness
+trace, with the program's spans in it; the spans themselves are
+tests/test_torch_spans.py's), ``utils.debug`` (the finiteness
 checks that stand in for checkify) and the additions to
 ``utils.asset_guard`` (``guard_score`` at a small particle count,
 ``make_receipt``'s platform, ``load_asset``'s class and
@@ -45,25 +46,26 @@ def _small_model(cls=GPMDM, **kw):
 
 
 def test_trace_writes_a_chrome_trace_with_annotations(tmp_path):
+    """``trace`` writes a Chrome trace in which the program's spans show as
+    host operations (``cpu_op``) beside aten's."""
+    from gpmdm_tpu_torch import PFConfig
+    from gpmdm_tpu_torch.filter import particle_filter as tpf
+    from gpmdm_tpu_torch.utils.io import load_model
+
+    m = load_model(ASSETS / "bench_model.npz", device="cpu")
+    post = tpf.resolve_posterior(m, "auto")
+    pf_cfg = PFConfig(num_particles=16)
+    g = torch.Generator().manual_seed(0)
+    states = tpf.pf_init_bank(post, m.layout.y_class_offsets, g, pf_cfg, 2)
+    log_T = torch.log(torch.tensor([[0.9, 0.1], [0.1, 0.9]], dtype=m.dtype))
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("gpmdm_region"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
+        tpf.pf_step_bank(states, torch.zeros(2, m.D, dtype=m.dtype), post, m.params, log_T,
+                         m.config, pf_cfg, generator=g)
     assert prof.key_averages()
     (path,) = tmp_path.glob("trace_*.json")
-    names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
-    assert "gpmdm_region" in names and "aten::mm" in names
-
-
-def test_stage_timer_and_throughput():
-    timer = profiling.StageTimer()
-    for _ in range(3):
-        with timer.stage("a"):
-            pass
-    with timer.stage("b"):
-        pass
-    assert timer.counts == {"a": 3, "b": 1} and timer.rates("a") > 0
-    assert timer.summary().count("calls") == 2
-    assert profiling.throughput(10, 2.0) == 5.0 and profiling.throughput(1, 0) == float("inf")
+    cats = {e.get("name"): e.get("cat") for e in json.loads(path.read_text())["traceEvents"]}
+    assert cats["pf.step"] == cats["pf.dynamics"] == "cpu_op"
+    assert "aten::bmm" in cats
 
 
 def test_checked_passes_finite_work_and_names_the_first_non_finite_op():
