@@ -101,16 +101,30 @@ Phases, each printing one JSON line on stdout:
              (1149 / 5120) is in the flat-spectrum band; posterior=
              'compressed' serves a 200-frame path and the guard (16 banks
              a call), reported, not gated.
-   sparse phases - the SGPR posteriors, cuBLAS fp32 products and
-             triangular solves (no Pallas kernel in the JAX package), and
-             K3: K1 = K2 = 0 and K3 = frames (padded frames, times the
-             calls, on a guard) on each, TF32 off, peak device memory.
+   sparse phases - the SGPR posteriors (no Pallas kernel in the JAX
+             package): K4 sgpr_predict on the per-frame solve path (a
+             sparse model's own posterior), cuBLAS fp32 products on the
+             hoisted one (a distillation's), and K3: K1 = K2 = 0, K3 =
+             frames (padded frames, times the calls, on a guard) and K4 =
+             2 x frames on the solve path (the observation GP, and every
+             class's dynamics GP in one launch), 0 on the hoisted one, on
+             each; TF32 off, peak device memory.
              Each guard is evaluate_pf_banked at P = 10,000 unless named.
              - sparse_hourlong: the SparseGPMDM of
                bench_model_hourlong.npz (Ny = 108,000, M = 128), load
-               timed; 'auto' must serve its own posterior; 200-frame path
-               (best of 2) and bench.py:530-539's banked guard (12 trials
-               x 600 frames), gated at 0.90.
+               timed; 'auto' must serve its own posterior.  K4 first, at
+               the live cell's 32 banks x 10,000 (their initial cloud):
+               the observation GP and both classes' dynamics GP, each
+               against its plain version in float64 on the card, on the
+               path's inputs and on a seeded well-conditioned SGPR of the
+               same shapes (bench_kernels.sgpr_inputs), to the kernels
+               phase's two limits, and timed beside its plain version
+               and, as library_ms, the plain version's two
+               solve_triangular calls alone (cuBLAS trsm); its entry
+               joins the kernels line (ms, bound_ms ... a step: both
+               launches).  Then the 200-frame path (best of 2) and
+               bench.py:530-539's banked guard (12 trials x 600 frames),
+               gated at 0.90.
              - sparse_hourlongh, sparse10240: 'auto' and the guard of
                utils.asset_guard's SHAPES, reported.
              - sparsified_c8: 'auto' must serve the persisted kmeans-128
@@ -164,7 +178,8 @@ Phases, each printing one JSON line on stdout:
              losses be finite and the last within 5% of the asset's loss at
              its stored parameters (on the card).  The model then serves
              bench.py:530-539's banked guard (12 trials x 600 frames, P =
-             10,000; K1 = K2 = 0, K3 = padded frames), reported beside
+             10,000; K1 = K2 = 0, K3 = padded frames, K4 = twice that),
+             reported beside
              sparse_hourlong's guard, not gated.
 14. train_bc - the bench_model.npz recipe as a BCGPMDM (median
              lengthscale), 300 Adam steps at lr 0.01: every loss finite,
@@ -347,11 +362,16 @@ PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "": (67e12, 3.35e12)}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = "gpmdm_tpu_torch/ops/csrc/gp_posterior.cu"
 RANK_CSRC = "gpmdm_tpu_torch/ops/csrc/resample_rank.cu"
+SGPR_CSRC = "gpmdm_tpu_torch/ops/csrc/sgpr_predict.cu"
+# banks of 10,000 particles at which K4 is checked: the live cell's
+SGPR_BANKS = 32
 REPLACES = {
     "fused_x_posterior": "gpmdm_tpu/ops/pallas/gp_posterior.py:216",
     "fused_rbf_posterior": "gpmdm_tpu/ops/pallas/gp_posterior.py:216",
     "fused_obs_loglik": "gpmdm_tpu/ops/pallas/gp_posterior.py:347",
     "resample_rank": "tools/exp_resample_rank_pallas.py:77",
+    "sgpr_predict": "none: the JAX package leaves the SGPR prediction to XLA "
+                    "(gpmdm_tpu/models/sparse.py)",
 }
 
 _phase = ["start"]
@@ -396,6 +416,17 @@ def obs_work(N, P, d, D, n_z=1):
     """(flops, bytes) of one observation weighting against n_z observations."""
     flops = N * P * (3 * d + 1) + 2 * N * D * P + 2 * N * N * P + 2 * N * P + 4 * D * P
     nbytes = 4 * (N * d + P * d + d + N * D + N * N + (n_z + 1) * D + 2 * P)
+    return flops, nbytes
+
+
+def sgpr_work(M, P, din, Dout, C, has_linear):
+    """(flops, bytes) of one K4 launch over C class GPs of M inducing
+    inputs at P points (perfbench/yardstick.py sgpr_predict_flops a GP):
+    star column, mean, two substitutions, squared sums; the inputs and
+    factors read once, the mean and variance written."""
+    per_pair = 3 * din + 1 + (2 * din + 2 if has_linear else 0)
+    flops = C * P * (M * per_pair + 2 * M * Dout + 2 * M * M + 4 * M + 2)
+    nbytes = 4 * (C * (M * din + 2 * M * M + M * Dout + P * Dout + P) + P * din + 2 * din + 2)
     return flops, nbytes
 
 
@@ -502,6 +533,7 @@ OUTPUT_NAMES = {
     "fused_x_posterior": ("mean", "quad"),
     "fused_rbf_posterior": ("mean", "quad"),
     "fused_obs_loglik": ("quad", "qres"),
+    "sgpr_predict": ("mean", "var"),
 }
 
 
@@ -526,7 +558,8 @@ def main(argv) -> int:
     sys.path.insert(0, ROOT)
     from gpmdm_tpu_torch import BCGPMDM, GPMDM, GPMDM_PF, PFConfig, SparseGPMDM, TrainConfig
     from gpmdm_tpu_torch.bench_kernels import (RANK_SHAPES, conditioned, conditioned_classes,
-                                               dirichlet_counts, gemm_yardstick, time_ms)
+                                               dirichlet_counts, gemm_yardstick, sgpr_inputs,
+                                               time_ms)
     from gpmdm_tpu_torch.data import synthetic
     from gpmdm_tpu_torch.filter import particle_filter as pf
     from gpmdm_tpu_torch.models import sparse as tsp
@@ -534,6 +567,7 @@ def main(argv) -> int:
     from gpmdm_tpu_torch.ops import _build
     from gpmdm_tpu_torch.ops import gp_posterior as gpk
     from gpmdm_tpu_torch.ops import resample as rs
+    from gpmdm_tpu_torch.ops import sgpr
     from gpmdm_tpu_torch.train import trainer
     from gpmdm_tpu_torch.utils import asset_guard as ag
     from gpmdm_tpu_torch.utils import profiling
@@ -708,19 +742,21 @@ def main(argv) -> int:
 
     # each kernel's launch counter in the program's registry
     counters = {"fused_x_posterior": "ops.k1.launches", "fused_rbf_posterior": "ops.k1p.launches",
-                "fused_obs_loglik": "ops.k2.launches", "resample_rank": "ops.k3.launches"}
+                "fused_obs_loglik": "ops.k2.launches", "resample_rank": "ops.k3.launches",
+                "sgpr_predict": "ops.k4.launches"}
     reset_launches = profiling.reset
 
-    def check_launches(label, frames, exact=True):
+    def check_launches(label, frames, exact=True, k4=0):
         """The counters against ``frames`` frames of one launch each of K1
         (every class at once), K2 and K3, whatever the number of banks and
         classes; on a compressed or sparse posterior (``exact=False``) of K3
-        alone."""
+        alone; and ``k4`` launches of K4 (two a frame on a sparse
+        posterior's solve path, none elsewhere)."""
         now = profiling.snapshot()["counters"]
         got = {k: now.get(c, 0) for k, c in counters.items()}
         k = frames if exact else 0
         want = {"fused_x_posterior": k, "fused_rbf_posterior": 0,
-                "fused_obs_loglik": k, "resample_rank": frames}
+                "fused_obs_loglik": k, "resample_rank": frames, "sgpr_predict": k4}
         if got != want:
             raise AssertionError(f"{label}: launch counts {got}, expected {want}")
         return got
@@ -1108,8 +1144,8 @@ def main(argv) -> int:
     del m, cpx, flt
     torch.cuda.empty_cache()
 
-    # The sparse family: SGPR posteriors (cuBLAS products and triangular
-    # solves) and K3, K1 = K2 = 0 on every phase.
+    # The sparse family: SGPR posteriors (K4 on the per-frame solve path,
+    # cuBLAS products on the hoisted one) and K3, K1 = K2 = 0 on every phase.
     sparse_launches = {}
 
     def sparse_guard(label, m, post, trials, trial_labels, T, config, gated, max_banks=None):
@@ -1123,7 +1159,8 @@ def main(argv) -> int:
         reset_launches()
         rep = evaluate_pf_banked(m, T, trials, trial_labels, burn_in=5, seed=0, config=config,
                                  posterior=post, max_banks=max_banks)
-        lg = check_launches(f"{label} banked guard", n_calls * T_pad_x, exact=False)
+        lg = check_launches(f"{label} banked guard", n_calls * T_pad_x, exact=False,
+                            k4=k4_per_frame(config, post) * n_calls * T_pad_x)
         check_precision(label)
         sparse_launches[f"{label}_banked_guard"] = lg
         acc = rep.frame_metrics["accuracy"]
@@ -1147,12 +1184,61 @@ def main(argv) -> int:
         flt = GPMDM_PF(m, T, N_PARTICLES, config=pfc, seed=0, posterior=post)
         reset_launches()
         wall, o = timed_filter(flt, Zx)
-        lp = check_launches(f"{label} path", len(Zx), exact=False)
+        lp = check_launches(f"{label} path", len(Zx), exact=False,
+                            k4=k4_per_frame(pfc, post) * len(Zx))
         check_outputs(f"{label} path", o, len(Zx), m.n_classes)
         walls = [wall] + [timed_filter(flt, Zx)[0] for _ in range(runs - 1)]
         sparse_launches[f"{label}_path"] = lp
         return {"particles": N_PARTICLES, "frames": len(Zx), "path_launches": lp,
                 "fps": len(Zx) / min(walls), "walls_s": walls, "path_peak_gib": peak_gib()}
+
+    def k4_per_frame(config, post):
+        """K4's launches a bank step on post: the observation GP's and every
+        class's dynamics GP's on the per-frame solve path, none on the
+        hoisted one."""
+        return 2 if pf._effective_quad_precision(config, post) is None else 0
+
+    def check_k4(m, post, banks):
+        """K4 on post at the initial cloud of ``banks`` x N_PARTICLES, the
+        observation GP and every class's dynamics GP, as the filter calls
+        them (see the module docstring): one entry for the pair, the
+        bank step's two launches, with each GP's entry under "gps"."""
+        prm, mc = m.params, m.config
+        g = torch.Generator(device=dev).manual_seed(banks)
+        xk = pf.pf_init_bank(post, m.layout.y_class_offsets, g, pfc, banks).x
+        xk = xk.reshape(-1, xk.shape[-1]).contiguous()
+        gps = (("obs", (post.Zy, xk, post.Ly, post.LBy, post.beta_y, prm.y_log_lengthscales,
+                        prm.y_log_sigma_n, mc.sigma_n_num_Y, pfc.obs_noise_in_weights, None)),
+               ("dyn", (post.Zx, xk, post.Lx, post.LBx, post.beta_x, prm.x_log_lengthscales,
+                        prm.x_log_sigma_n, mc.sigma_n_num_X, False, prm.x_log_lin_coeff)))
+        entries = []
+        for i, (label, args) in enumerate(gps):
+            Zg, Lm, LB = args[0], args[2], args[3]
+            Cg = Zg.shape[0] if Zg.dim() == 3 else 1
+            Mg, din = Zg.shape[-2:]
+            Dout, lin = args[4].shape[-1], args[9] is not None
+            cargs, ckw = sgpr_inputs(Mg, xk.shape[0], din, Dout, Cg, lin, dev, seed=20 + i)
+            e = check_kernel("sgpr_predict", sgpr.sgpr_predict, sgpr.sgpr_predict_plain, args,
+                             (*cargs, ckw["sigma_n_num"], ckw["with_noise"],
+                              ckw["log_lin_coeff"]),
+                             peaks, sgpr_work(Mg, xk.shape[0], din, Dout, Cg, lin))
+            Kstar = sgpr.star_block(Zg, xk, *args[5:])[0]
+            e["library_ms"] = time_ms(lambda: torch.linalg.solve_triangular(
+                LB, torch.linalg.solve_triangular(Lm, Kstar, upper=False), upper=False))
+            tp, gx, n_scratch = sgpr.plan(_build.library(), Mg, xk.shape[0], din, Cg, dev)
+            e.update(source=SGPR_CSRC, gp=label, M=Mg, classes=Cg, din=din, outputs=Dout,
+                     tile=tp, blocks_per_class=gx, scratch_floats=n_scratch)
+            entries.append(e)
+            del Kstar
+        torch.cuda.empty_cache()
+        total = lambda key: sum(e[key] for e in entries)  # noqa: E731
+        return {"name": "sgpr_predict", "route": "cuda", "source": SGPR_CSRC,
+                "replaces": REPLACES["sgpr_predict"], "launches": 0,
+                "shape": [banks, N_PARTICLES],
+                "max_abs_err": max(e["max_abs_err"] for e in entries),
+                "ms": total("ms"), "plain_ms": total("plain_ms"),
+                "bound_ms": total("bound_ms"), "library_ms": total("library_ms"),
+                "gps": entries}
 
     def describe(post):
         return {"My": post.Zy.shape[0], "Mx": post.Zx.shape[1], "classes": post.Zx.shape[0],
@@ -1174,9 +1260,20 @@ def main(argv) -> int:
 
     _phase[0] = "sparse_hourlong"
     m, post_s, load_s = load_sparse("bench_model_hourlong.npz")
+    check_precision("sparse_hourlong")
+    k4_entry = check_k4(m, post_s, SGPR_BANKS)
+    emit({"phase": "sparse_hourlong_k4",
+          "kernel": {k: ([{kk: vv for kk, vv in e.items() if kk != "conditioned_inputs"}
+                          for e in v] if k == "gps" else v) for k, v in k4_entry.items()},
+          "device": kind, "nvidia_smi": smi})
     entry = {"phase": "sparse_hourlong", "load_s": load_s, **describe(post_s),
              **sparse_path("sparse_hourlong", m, post_s, Z[:EXTRA_FRAMES].contiguous(),
                            TRANSITIONS)}
+    k4_entry["launches"] = entry["path_launches"]["sgpr_predict"]
+    if k4_entry["launches"] != 2 * EXTRA_FRAMES:
+        raise AssertionError(f"sparse_hourlong: K4 launched {k4_entry['launches']} times in "
+                             f"{EXTRA_FRAMES} frames")
+    kernels.append(k4_entry)
     if "--profile" in argv:
         for nb, frames in ((1, 50), (len(ag.guard_trials("hourlong")[0]), 10)):
             g = torch.Generator(device=dev).manual_seed(0)
@@ -1252,7 +1349,8 @@ def main(argv) -> int:
     sp_fleet_walls = []
     for _ in range(SPARSE_FLEET_RUNS):
         wall, outs = run_fleet(fleet_q, sp_head)
-        sp_fleet_launches = check_launches("sparsified_fleet", FLEET_FRAMES, exact=False)
+        sp_fleet_launches = check_launches("sparsified_fleet", FLEET_FRAMES, exact=False,
+                                           k4=k4_per_frame(fleet_q, sp_head) * FLEET_FRAMES)
         sp_fleet_walls.append(wall)
     probs = outs.class_probs
     if probs.shape != (FLEET_BANKS, FLEET_FRAMES, C) or not torch.isfinite(probs).all():
@@ -1840,7 +1938,7 @@ def main(argv) -> int:
     _phase[0] = "report"
     heavy = ("path_inputs", "conditioned_inputs")
     emit({"kernels": [{k: ([{kk: vv for kk, vv in e.items() if kk not in heavy} for e in v]
-                           if k in ("banked", "large_n", "assets", "examples") else v)
+                           if k in ("banked", "large_n", "assets", "examples", "gps") else v)
                        for k, v in kern.items() if k not in heavy}
                       for kern in kernels]})
     print(f"{smi} (total {time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -2131,8 +2229,8 @@ def sharded_phases(dev, kind, smi, model, pfc, q_seqs, q_labels, Z, reset_launch
 
 # kernel-name fragments by kind, the first match taken: cuSOLVER's QR
 # (geqrf and the Householder updates, larf*, and orgqr / ormqr); its potrf
-# runs getrf-without-pivot and syrk kernels; cuBLAS's trsm; the products
-# (gemm, gemv, xmma)
+# runs getrf-without-pivot and syrk kernels; cuBLAS's trsm and K4
+# (sgpr_trsm_predict); the products (gemm, gemv, xmma)
 KERNEL_KINDS = (("qr (geqrf)", ("geqr", "larf", "orgqr", "ormqr", "orm2r", "org2r")),
                 ("cholesky (potrf)", ("potrf", "getrf", "syrk")),
                 ("triangular solve", ("trsm", "trsv")),

@@ -3,6 +3,7 @@
     python -m gpmdm_tpu_torch.bench_kernels
     python -m gpmdm_tpu_torch.bench_kernels --only K1 --variants "" GP_SKIP_GEN \
         GP_SKIP_FMA GP_SKIP_STAGE --rank-variants
+    python -m gpmdm_tpu_torch.bench_kernels --only K4 --rank-variants
 
 Needs one CUDA card.  Each variant is a set of comma-separated ``NAME`` or
 ``NAME=VALUE`` macros (``""`` is the shipped build), compiled from the same
@@ -13,8 +14,12 @@ calls it) at the filter's shapes on seeded inputs, at the launcher's own
 particle tile and at each forced one, K1 on both designs (``one_pass``
 and the ``streamed`` core), and K2's ``gemm`` yardstick; for each rank
 variant, K3 (``resample_rank``) beside ``torch.searchsorted`` on the same
-sorted s, checked bit for bit against its plain version.  ``--only``
-keeps the posterior shapes of one kernel.  Variants that skip work
+sorted s, checked bit for bit against its plain version; and, on the
+shipped build, K4 (``sgpr_predict``) beside its plain version and the
+plain version's two ``solve_triangular`` calls alone (the cuBLAS ``trsm``
+it replaces), each output held against float64 within 4 x the plain fp32
+error + 1e-6 x its largest magnitude.  ``--only`` keeps the shapes of one
+kernel (K1 or K2 of the posterior variants, or K4 alone).  Variants that skip work
 (GP_SKIP_GEN, GP_SKIP_FMA, GP_SKIP_STAGE) give wrong outputs by design and
 are timed only.  One JSON line per variant, each with the card's name and
 power limit.
@@ -38,6 +43,7 @@ import torch
 from gpmdm_tpu_torch.ops import _build
 from gpmdm_tpu_torch.ops import gp_posterior as gpk
 from gpmdm_tpu_torch.ops import resample as rs
+from gpmdm_tpu_torch.ops import sgpr
 
 # (kernel, training rows, particles, d, outputs, classes): the headline
 # asset's K2 and K1 at one filter, the fleet and the banked guard, n2048's
@@ -50,6 +56,13 @@ POSTERIOR_SHAPES = [("K2", 480, 10_000, 2, 35, 1), ("K2", 480, 64_000, 2, 35, 1)
 # (banks, particles per bank) of K3: the single filter, the banked guard,
 # the fleet, and the TPU kernel's design point
 RANK_SHAPES = [(1, 10_000), (12, 10_000), (64, 1000), (1, 100_000)]
+# (label, M, particles, din, outputs, classes, linear term) of K4: hourlong's
+# observation and dynamics GPs at the live cell's 32 x 10,000, the c8n5120
+# distillation's M = 384 over its 8 classes, and an M past shared memory
+# (the global scratch)
+SGPR_SHAPES = [("obs", 128, 320_000, 2, 35, 1, False), ("dyn", 128, 320_000, 2, 2, 2, True),
+               ("c8n5120 dyn", 384, 40_000, 3, 3, 8, True),
+               ("M1536 obs", 1536, 40_000, 2, 35, 1, False)]
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -155,12 +168,70 @@ def bench_rank(lib, dev):
     return out
 
 
+def sgpr_inputs(M, P, din, Dout, C, lin, dev, seed):
+    """Seeded K4 inputs from the SGPR of C random GPs, built in float64 as
+    ``models.sparse.precompute_host`` builds it (Kmm with a unit jitter, 2 M
+    data points, sigma = 1), so fp32 keeps its digits; positional
+    arguments of ``sgpr_predict`` and its keyword arguments."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(device=dev, dtype=torch.float64)
+    log_ls = 0.3 * torch.randn(din, generator=g, **f64)
+    log_lin = 0.3 * torch.randn(din + 1, generator=g, **f64) - 1.0 if lin else None
+    Z = torch.randn(C, M, din, generator=g, **f64)
+    Xn = torch.randn(C, 2 * M, din, generator=g, **f64)
+    star = lambda a, b: sgpr.star_block(a, b, log_ls, None, 0.0, False, log_lin)[0]  # noqa: E731
+    eye = torch.eye(M, **f64)
+    Lm = torch.linalg.cholesky(torch.stack([star(Z[c], Z[c]) for c in range(C)]) + eye)
+    A = torch.linalg.solve_triangular(Lm, torch.stack([star(Z[c], Xn[c]) for c in range(C)]),
+                                      upper=False)
+    LB = torch.linalg.cholesky(eye + A @ A.mT)
+    beta = torch.randn(C, M, Dout, generator=g, **f64)
+    xs = torch.randn(P, din, generator=g, **f64)
+    args = [t.float().contiguous() for t in (Z, xs, Lm, LB, beta, log_ls,
+                                             torch.tensor(-1.5, **f64))]
+    if C == 1:
+        args[0], args[2], args[3], args[4] = (t[0].contiguous() for t in args[0:1] + args[2:5])
+    kw = dict(sigma_n_num=0.1, with_noise=not lin,
+              log_lin_coeff=None if log_lin is None else log_lin.float())
+    return args, kw
+
+
+def bench_sgpr(lib, dev):
+    out = {}
+    for i, (label, M, P, din, D, C, lin) in enumerate(SGPR_SHAPES):
+        args, kw = sgpr_inputs(M, P, din, D, C, lin, dev, seed=100 + i)
+        got = sgpr._sgpr_cuda(*args, kw["sigma_n_num"], kw["with_noise"],
+                              kw["log_lin_coeff"], lib=lib)
+        plain32 = sgpr.sgpr_predict_plain(*args, **kw)
+        lin64 = None if kw["log_lin_coeff"] is None else kw["log_lin_coeff"].double()
+        want = sgpr.sgpr_predict_plain(*[t.double() for t in args], kw["sigma_n_num"],
+                                       kw["with_noise"], lin64)
+        for name, gg, c32, w in zip(("mean", "var"), got, plain32, want):
+            err = (gg.double() - w).abs().max().item()
+            ref = (c32.double() - w).abs().max().item()
+            out[f"K4 {label} {name} err / plain err"] = [err, ref]
+            if not err <= 4 * ref + 1e-6 * w.abs().max().item():
+                raise AssertionError(f"K4 {label} {name}: error {err}, plain fp32's {ref}")
+        del plain32, want
+        Kstar = sgpr.star_block(args[0], args[1], args[5], args[6], kw["sigma_n_num"],
+                                kw["with_noise"], kw["log_lin_coeff"])[0]
+        tag = f"M={M} P={P} din={din} Dout={D} C={C}"
+        out[f"K4 {label} {tag}"] = time_ms(lambda: sgpr._sgpr_cuda(
+            *args, kw["sigma_n_num"], kw["with_noise"], kw["log_lin_coeff"], lib=lib))
+        out[f"plain {label} {tag}"] = time_ms(lambda: sgpr.sgpr_predict_plain(*args, **kw))
+        out[f"trsm {label} {tag}"] = time_ms(lambda: torch.linalg.solve_triangular(
+            args[3], torch.linalg.solve_triangular(args[2], Kstar, upper=False), upper=False))
+        del Kstar
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="*", default=[""])
     ap.add_argument("--rank-variants", nargs="*", default=[""])
-    ap.add_argument("--only", choices=("K1", "K2"), default=None,
-                    help="time the posterior shapes of one kernel only")
+    ap.add_argument("--only", choices=("K1", "K2", "K4"), default=None,
+                    help="time the shapes of one kernel only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_kernels: needs a CUDA card", file=sys.stderr)
@@ -169,12 +240,16 @@ def main(argv) -> int:
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
+    posterior_variants = [] if args.only == "K4" else args.variants
+    sgpr_builds = [""] if args.only in (None, "K4") else []
     # every variant's nvcc at once, then the timings one variant at a time
     with ThreadPoolExecutor() as pool:
-        list(pool.map(_build.build, {_variant(t) for t in args.variants + args.rank_variants}))
+        list(pool.map(_build.build, {_variant(t) for t in
+                                     posterior_variants + args.rank_variants + sgpr_builds}))
     posterior = lambda lib, dev: bench_posterior(lib, dev, args.only)  # noqa: E731
-    for kernels, variants, bench in (("posterior", args.variants, posterior),
-                                     ("rank", args.rank_variants, bench_rank)):
+    for kernels, variants, bench in (("posterior", posterior_variants, posterior),
+                                     ("rank", args.rank_variants, bench_rank),
+                                     ("sgpr", sgpr_builds, bench_sgpr)):
         for text in variants:
             ms = bench(_build.library(_variant(text)), dev)
             print(json.dumps({"kernels": kernels, "variant": text, "ms": ms,

@@ -8,8 +8,9 @@ padded sequence).  One filter is a bank of one.  The GP stages dispatch
 on the posterior's type, as the JAX package's do: the exact
 ``core.Posterior`` runs the fused kernels (the JAX package's
 ``PFConfig(pallas='on')`` path), the ``compressed.CompressedPosterior``
-and the ``sparse.SparsePosterior`` their cuBLAS products and triangular
-solves (the JAX package's XLA path).  Each frame runs:
+its cuBLAS products and the ``sparse.SparsePosterior`` K4 on the
+per-frame solve path or its products on the hoisted one (the JAX
+package's XLA path).  Each frame runs:
 
 1. Markov class transition, by inverse CDF: one uniform per particle;
 2. the per-class dynamics posterior (exact: ``fused_x_posterior_classes``,
@@ -248,8 +249,8 @@ def _dynamics(post, params, xin, cfg: GPMDMConfig, pf_cfg: PFConfig):
     classes (n_valid = n_max disables its row mask: the precompute's zero
     padding of Axc / Kxc_inv annihilates the padded star-kernel rows),
     the common variance not clamped.  Compressed: its products, the
-    common variance clamped at 1e-9.  Sparse: its products or triangular
-    solves, clamped at 1e-12."""
+    common variance clamped at 1e-9.  Sparse: K4 (one launch for all
+    classes) or its products, clamped at 1e-12."""
     if isinstance(post, compressed.CompressedPosterior):
         return compressed.predict_x_all_classes(post, params, xin, cfg)
     if isinstance(post, sparse.SparsePosterior):

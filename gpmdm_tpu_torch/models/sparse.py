@@ -23,8 +23,10 @@ of its filter scans and this module computes once per posterior
 (``SparsePosterior.inverses``).  The port has one matmul precision, IEEE
 fp32 (TF32 is never enabled), so the value picks the algorithm only.
 The JAX package computes these predictions in XLA, outside any Pallas
-kernel, so here they are ``torch.linalg.solve_triangular`` and
-``torch.matmul``.
+kernel.  Here the solve path is ``ops.sgpr.sgpr_predict``: on the card
+one hand-written kernel (K4) from the star kernel to the mean and the
+variance, on the CPU ``torch.linalg.solve_triangular``; the hoisted path
+is ``torch.matmul``.
 
 The factors come from the host in float64 (``precompute_host``), cast to
 the model dtype.  ``distill_host`` builds them for a trained exact model
@@ -58,6 +60,7 @@ from ..config import GPMDMConfig
 from ..ops import kernels as K
 from ..ops import kernels_host as KH
 from ..ops import linalg as LA
+from ..ops.sgpr import sgpr_predict, star_block
 from ..ops.layout import DataLayout, padded_class_indices
 from .core import PARAM_FIELDS, host_f64, hyperprior_penalty, tensor_from_numpy
 
@@ -285,22 +288,23 @@ def _inverses(Lm: torch.Tensor, LB: torch.Tensor) -> torch.Tensor:
     return torch.cat([Vi, Wi], dim=-2)
 
 
-def _sgpr_predict(Lm, LB, beta, Kstar_m, kss_diag, inverses=None):
+def _sgpr_predict(Z, Xstar, Lm, LB, beta, inverses, log_lengthscales, log_sigma_n,
+                  sigma_n_num: float, with_noise: bool, log_lin_coeff=None):
     """The SGPR predictive mean (..., N*, Dout) and common variance
-    (..., N*), clamped at 1e-12, from the star kernel against the inducing
-    inputs ``Kstar_m`` (..., M, N*).  ``inverses`` (``[Lm^-1; (Lm
+    (..., N*), clamped at 1e-12, at ``Xstar`` against the inducing inputs
+    ``Z`` (``ops.sgpr`` has the kernels).  ``inverses`` (``[Lm^-1; (Lm
     LB)^-1]``) selects the hoisted variance path; None, the per-frame
-    triangular solves."""
+    triangular solves (K4 on the card)."""
+    if inverses is None:
+        return sgpr_predict(Z, Xstar.contiguous(), Lm, LB, beta, log_lengthscales, log_sigma_n,
+                            sigma_n_num, with_noise, log_lin_coeff)
+    Kstar_m, kss_diag = star_block(Z, Xstar, log_lengthscales, log_sigma_n, sigma_n_num,
+                                   with_noise, log_lin_coeff)
     mean = Kstar_m.mT @ beta
     M = Lm.shape[-1]
-    if inverses is None:
-        v1 = torch.linalg.solve_triangular(Lm, Kstar_m, upper=False)  # (..., M, N*)
-        v2 = torch.linalg.solve_triangular(LB, v1, upper=False)
-        s1, s2 = torch.sum(v1.square_(), dim=-2), torch.sum(v2.square_(), dim=-2)
-    else:
-        # both products at once; squared in place, nothing else reads them
-        sq = (inverses @ Kstar_m).square_()  # (..., 2M, N*)
-        s1, s2 = torch.sum(sq[..., :M, :], dim=-2), torch.sum(sq[..., M:, :], dim=-2)
+    # both products at once; squared in place, nothing else reads them
+    sq = (inverses @ Kstar_m).square_()  # (..., 2M, N*)
+    s1, s2 = torch.sum(sq[..., :M, :], dim=-2), torch.sum(sq[..., M:, :], dim=-2)
     return mean, torch.clamp(kss_diag - s1 + s2, min=1e-12)
 
 
@@ -360,32 +364,29 @@ def predict_y(post: SparsePosterior, params, Xstar: torch.Tensor, cfg: GPMDMConf
     """Latent -> observation posterior: mean and per-dimension variance
     (N*, D).  ``quad_precision`` other than None takes the hoisted
     variance path (module docstring)."""
-    Kstar = K.rbf_kernel(post.Zy, Xstar, params.y_log_lengthscales)  # (My, N*)
-    kss = K.y_diag_kernel(Xstar, params.y_log_sigma_n, cfg.sigma_n_num_Y, with_noise)
     inv = None if quad_precision is None else post.inverses[0]
-    mean, var_common = _sgpr_predict(post.Ly, post.LBy, post.beta_y, Kstar, kss, inv)
+    mean, var_common = _sgpr_predict(post.Zy, Xstar, post.Ly, post.LBy, post.beta_y, inv,
+                                     params.y_log_lengthscales, params.y_log_sigma_n,
+                                     cfg.sigma_n_num_Y, with_noise)
     return mean, var_common[:, None] * torch.exp(params.y_log_lambdas)[None, :] ** -2
 
 
 def _predict_x_per_class(post: SparsePosterior, params, Xstar: torch.Tensor,
                          cfg: GPMDMConfig, with_noise: bool, quad_precision=None):
-    """Per-class dynamics posteriors: means (C, N*, d), common variances
-    (C, N*) before the lambda scaling, and the star prior diagonal (N*,)."""
-    kss = K.x_diag_kernel(Xstar, params.x_log_lin_coeff, params.x_log_sigma_n,
-                          cfg.sigma_n_num_X, with_noise)
-    Kstar = K.x_kernel(post.Zx, Xstar, params.x_log_lengthscales, params.x_log_sigma_n,
-                       params.x_log_lin_coeff, with_noise=False)  # (C, Mx, N*)
+    """Per-class dynamics posteriors: means (C, N*, d) and common
+    variances (C, N*) before the lambda scaling."""
     inv = None if quad_precision is None else post.inverses[1]
-    means, var_common = _sgpr_predict(post.Lx, post.LBx, post.beta_x, Kstar, kss, inv)
-    return means, var_common, kss
+    return _sgpr_predict(post.Zx, Xstar, post.Lx, post.LBx, post.beta_x, inv,
+                         params.x_log_lengthscales, params.x_log_sigma_n, cfg.sigma_n_num_X,
+                         with_noise, params.x_log_lin_coeff)
 
 
 def predict_x_all_classes(post: SparsePosterior, params, Xstar: torch.Tensor,
                           cfg: GPMDMConfig, with_noise: bool = False, quad_precision=None):
     """Every class's dynamics posterior at once: means and variances
     (C, N*, d).  ``quad_precision``: see :func:`predict_y`."""
-    means, var_common, _ = _predict_x_per_class(post, params, Xstar, cfg, with_noise,
-                                                quad_precision)
+    means, var_common = _predict_x_per_class(post, params, Xstar, cfg, with_noise,
+                                             quad_precision)
     return means, var_common[:, :, None] * torch.exp(params.x_log_lambdas)[None, None, :] ** -2
 
 
@@ -396,8 +397,10 @@ def predict_x(post: SparsePosterior, params, Xstar: torch.Tensor, cfg: GPMDMConf
     the all-class map additive over classes (mean = sum_c mean_c, variance
     reduction = sum_c (kss - var_common_c)); each class's inducing set
     stands in for its training block here."""
-    means, var_common, kss = _predict_x_per_class(post, params, Xstar, cfg, with_noise,
-                                                  quad_precision)
+    means, var_common = _predict_x_per_class(post, params, Xstar, cfg, with_noise,
+                                             quad_precision)
+    kss = K.x_diag_kernel(Xstar, params.x_log_lin_coeff, params.x_log_sigma_n,
+                          cfg.sigma_n_num_X, with_noise)
     var_all = torch.clamp(kss - torch.sum(kss[None, :] - var_common, dim=0), min=1e-9)
     return (torch.sum(means, dim=0),
             var_all[:, None] * torch.exp(params.x_log_lambdas)[None, :] ** -2)

@@ -29,7 +29,7 @@ from pathlib import Path
 from ..utils.profiling import span
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "gp_posterior.cu", _CSRC / "resample_rank.cu")
+SOURCES = (_CSRC / "gp_posterior.cu", _CSRC / "resample_rank.cu", _CSRC / "sgpr_predict.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "gp_posterior_launch": (_I, [_P] * 8 + [_I] * 10 + [_P] * 3),
     "obs_loglik_launch": (_I, [_P] * 9 + [_I] * 7 + [_P] * 3),
     "resample_rank_launch": (_I, [_P] * 2 + [_I] * 2 + [_P]),
+    "sgpr_plan": (_I, [_I] * 5 + [_P]),
+    "sgpr_predict_launch": (_I, [_P] * 10 + [_I] * 7 + [_P] * 2),
 }
 
 

@@ -390,13 +390,14 @@ def test_cuda_compressed_predictions_match_f64(asset):
 @pytest.mark.parametrize("quad", [None, "high"], ids=["trisolve", "hoisted"])
 @pytest.mark.parametrize("asset", ["bench_model_hourlong.npz", "bench_model_c8n5120.npz"])
 def test_cuda_sparse_predictions_match_f64(asset, quad):
-    """The sparse posterior's predictions on the card (cuBLAS fp32
-    products and triangular solves, TF32 off) on both variance paths,
-    against the same posterior and points in float64 on the CPU, to the
-    rule above: 4 x the CPU's fp32 error + 1e-6 x the largest magnitude.
-    hourlong's own posterior (Ny = 108,000, M = 128) and c8n5120's
-    persisted distillation (M = 384, 8 classes), as 'auto' serves them,
-    at their initial clouds of 4,096."""
+    """The sparse posterior's predictions on the card (the solve path
+    through K4, one launch a prediction; the hoisted path's cuBLAS fp32
+    products, TF32 off) against the same posterior and points in float64
+    on the CPU, to the rule above: 4 x the CPU's fp32 error + 1e-6 x the
+    largest magnitude.  hourlong's own posterior (Ny = 108,000, M = 128)
+    and c8n5120's persisted distillation (M = 384, 8 classes), as 'auto'
+    serves them, at their initial clouds of 4,096; K4 takes both in
+    shared memory, at 128 particles a block."""
     from pathlib import Path
 
     from gpmdm_tpu_torch.filter import particle_filter as pf
@@ -421,14 +422,97 @@ def test_cuda_sparse_predictions_match_f64(asset, quad):
              (post_as(torch.float64, "cpu"), _f64(m.params), x.cpu().double()))
     for name in ("predict_y", "predict_x_all_classes"):
         fn = getattr(sparse, name)
+        profiling.reset()
         got, cpu32, want = (fn(p, prm, xx, m.config, with_noise=True, quad_precision=quad)
                             for p, prm, xx in cases)
         torch.cuda.synchronize()
+        assert _launches() == ({"ops.k4.launches": 1} if quad is None else {}), name
         for label, gg, c32, w in zip(("mean", "var"), got, cpu32, want):
             assert torch.isfinite(gg).all(), (name, label)
             err = (gg.cpu().double() - w).abs().max().item()
             ref = (c32.double() - w).abs().max().item()
             assert err <= 4 * ref + 1e-6 * w.abs().max().item(), (name, label, err, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,P,din,Dout,C,lin,tp,scratch", [
+    (128, 40_000, 2, 35, 1, False, 128, False),  # hourlong's observation GP
+    (384, 20_000, 3, 3, 8, True, 128, False),    # c8n5120's distillation
+    (1000, 5_000, 2, 2, 2, True, 32, False),     # 32-particle blocks
+    (1536, 5_000, 2, 35, 1, False, 128, True),   # past shared memory: the global scratch
+    (2048, 70_000, 3, 3, 2, True, 128, True),    # blocks looping over particle tiles
+])
+def test_cuda_sgpr_predict_any_m_matches_f64(M, P, din, Dout, C, lin, tp, scratch):
+    """K4 on seeded, well-conditioned SGPRs (``bench_kernels.sgpr_inputs``)
+    at M from hourlong's 128 to 2,048, across its plans (shared memory at
+    128 or 32 particles a block, the global scratch, with blocks looping
+    over particle tiles at the largest), against the plain version in
+    float64 on the card, to the rule above: 4 x the plain fp32 version's
+    error + 1e-6 x the largest magnitude; one launch a call."""
+    from gpmdm_tpu_torch.bench_kernels import sgpr_inputs
+    from gpmdm_tpu_torch.ops import _build
+    from gpmdm_tpu_torch.ops import sgpr
+
+    dev = _cuda_or_skip()
+    args, kw = sgpr_inputs(M, P, din, Dout, C, lin, dev, seed=M + P)
+    got_tp, gx, n_scratch = sgpr.plan(_build.library(), M, P, din, C, dev)
+    assert got_tp == tp and (n_scratch > 0) == scratch
+    assert (gx < -(-P // tp)) == (M == 2048)
+    profiling.reset()
+    got = sgpr.sgpr_predict(*args, **kw)
+    torch.cuda.synchronize()
+    assert _launches() == {"ops.k4.launches": 1}
+    plain32 = sgpr.sgpr_predict_plain(*args, **kw)
+    lin64 = None if kw["log_lin_coeff"] is None else kw["log_lin_coeff"].double()
+    want = sgpr.sgpr_predict_plain(*[t.double() for t in args], kw["sigma_n_num"],
+                                   kw["with_noise"], lin64)
+    for label, gg, c32, w in zip(("mean", "var"), got, plain32, want):
+        assert torch.isfinite(gg).all(), label
+        err = (gg.double() - w).abs().max().item()
+        ref = (c32.double() - w).abs().max().item()
+        assert err <= 4 * ref + 1e-6 * w.abs().max().item(), (label, err, ref)
+
+
+@pytest.mark.gpu
+def test_cuda_sparse_bank_step_runs_k4_and_no_trsm():
+    """One hourlong ``pf_step_bank`` at 4 x 1,000 under ``torch.profiler``:
+    exactly two K4 launches (the observation GP, and every class's
+    dynamics GP in one) and no cuBLAS ``trsm`` or ``trsv`` kernel."""
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpmdm_tpu_torch import PFConfig
+    from gpmdm_tpu_torch.filter import particle_filter as pf
+    from gpmdm_tpu_torch.models import sparse
+    from gpmdm_tpu_torch.utils.io import load_model
+
+    dev = _cuda_or_skip()
+    m = load_model(Path(__file__).resolve().parents[1] / "bench_assets"
+                   / "bench_model_hourlong.npz", "cuda")
+    post = pf.resolve_posterior(m, "auto")
+    assert isinstance(post, sparse.SparsePosterior) and not post.distilled
+    cfg = PFConfig(num_particles=1000)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    states = pf.pf_init_bank(post, m.layout.y_class_offsets, g, cfg, 4)
+    C = m.layout.n_classes
+    log_T = torch.log(torch.full((C, C), 0.1 / (C - 1), device=dev)
+                      + torch.eye(C, device=dev) * (0.9 - 0.1 / (C - 1)))
+    z = torch.zeros(4, m.D, device=dev)
+    pf.pf_step_bank(states, z, post, m.params, log_T, m.config, cfg, generator=g)
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pf.pf_step_bank(states, z, post, m.params, log_T, m.config, cfg, generator=g)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in _launches().items() if k != "ops.k3.launches"}
+    assert launches == {"ops.k4.launches": 2}
+    kernels = [e.name.lower() for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert sum("sgpr_trsm_predict" in k for k in kernels) == 2, kernels
+    assert not [k for k in kernels if ("trsm" in k or "trsv" in k)
+                and "sgpr_trsm_predict" not in k], kernels
 
 
 @pytest.mark.gpu

@@ -1,8 +1,8 @@
 """The port's CUDA kernel sources, run on the CPU under an emulation of the
 few CUDA features they use, against float64 and numpy references.
 
-``gpmdm_tpu_torch/ops/csrc/gp_posterior.cu`` and ``resample_rank.cu`` are
-compiled with g++ against stand-ins for the CUDA runtime: one fiber
+``gpmdm_tpu_torch/ops/csrc/gp_posterior.cu``, ``resample_rank.cu`` and
+``sgpr_predict.cu`` are compiled with g++ against stand-ins for the CUDA runtime: one fiber
 (``ucontext``) per CUDA thread, all on one OS thread, blocks of a grid in
 turn (the class axis included); a barrier for ``__syncthreads`` whose
 waiters yield to the next fiber; static buffers for the shared memory;
@@ -17,7 +17,8 @@ no card.  It says nothing about speed or about what nvcc accepts:
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` check the kernels on
 the card.  Skips when no g++ is present.
 
-Tolerance: 1e-4 relative to (1 + |reference|); the kernels sum in fp32.
+Tolerance: 1e-4 relative to (1 + |reference|); the kernels sum in fp32
+(K4's factors are well-conditioned Cholesky factors of SGPR matrices).
 The resampling rank counts integers, so it must equal numpy's exactly.
 """
 
@@ -30,7 +31,8 @@ import numpy as np
 import pytest
 
 CSRC = Path(__file__).resolve().parents[1] / "gpmdm_tpu_torch" / "ops" / "csrc"
-SOURCES = {"kernels.cpp": CSRC / "gp_posterior.cu", "rank.cpp": CSRC / "resample_rank.cu"}
+SOURCES = {"kernels.cpp": CSRC / "gp_posterior.cu", "rank.cpp": CSRC / "resample_rank.cu",
+           "sgpr.cpp": CSRC / "sgpr_predict.cu"}
 
 STUB = r"""
 #pragma once
@@ -133,6 +135,7 @@ int g_exchange[32][32];
 alignas(16) float smem[232448 / 4];
 #include "kernels.cpp"
 #include "rank.cpp"
+#include "sgpr.cpp"
 
 // The fibers of the running block: one per CUDA thread, each with its own
 // stack; g_cur runs, the others wait where they last yielded.
@@ -312,11 +315,55 @@ int run_obs_file(char** argv) {
   return 0;
 }
 
+// sgpr in.bin out.bin M P din Dout C lin noise sms: Z (C, M, din), xs (P, din),
+// Lm, LB (C, M, M), beta (C, M, Dout), log_ls (din), log_lin (din + 1), log_sn
+// (1) and num2 (1) in (float32, in that order); mean (C, P, Dout) and var
+// (C, P) out.  K4 as its launcher plans it for a card of sms SMs; a canary
+// past the shared memory it asks for must survive, and so must one past
+// the global scratch of its global plan.
+int run_sgpr(char** argv) {
+  const int M = atoi(argv[4]), P = atoi(argv[5]), din = atoi(argv[6]), D = atoi(argv[7]),
+            C = atoi(argv[8]), lin = atoi(argv[9]), noise = atoi(argv[10]), sms = atoi(argv[11]);
+  const size_t sizes[] = {(size_t)C * M * din, (size_t)P * din, (size_t)C * M * M,
+                          (size_t)C * M * M, (size_t)C * M * D, (size_t)din, (size_t)din + 1,
+                          1, 1};
+  size_t total = 0;
+  for (size_t n : sizes) total += n;
+  auto in = read_file<float>(argv[2], total);
+  const float* ptr[9];
+  size_t off = 0;
+  for (int k = 0; k < 9; ++k) { ptr[k] = in.data() + off; off += sizes[k]; }
+  std::vector<float> out((size_t)C * P * D + (size_t)C * P, -7.f);
+  const k4::Plan pl = k4::plan(M, P, din, C, sms);
+  if (pl.smem > sizeof(smem)) return 3;
+  std::vector<float> scratch(pl.scratch + 64, -7.f);
+  k4::Args a{ptr[0], ptr[1], ptr[2], ptr[3], ptr[4], ptr[5], lin ? ptr[6] : nullptr,
+             noise ? ptr[7] : nullptr, *ptr[8], out.data(), out.data() + (size_t)C * P * D,
+             M, P, din, D, pl.scratch ? scratch.data() : nullptr, k4::tiles_of(P, pl.tp)};
+  set_canary(pl.smem);
+  if (pl.scratch)
+    run_grid(pl.gx, C, 1, [&] { k4::sgpr_trsm_predict<128, true>(a, pl.mp); }, 128);
+  else if (pl.tp == 128)
+    run_grid(pl.gx, C, 1, [&] { k4::sgpr_trsm_predict<128, false>(a, pl.mp); }, 128);
+  else if (pl.tp == 64)
+    run_grid(pl.gx, C, 1, [&] { k4::sgpr_trsm_predict<64, false>(a, pl.mp); }, 64);
+  else
+    run_grid(pl.gx, C, 1, [&] { k4::sgpr_trsm_predict<32, false>(a, pl.mp); }, 32);
+  if (!canary_ok(pl.smem)) return 4;
+  for (size_t i = pl.scratch; i < scratch.size(); ++i)
+    if (scratch[i] != -7.f) return 5;
+  printf("tp %d mp %d gx %d tiles %d smem %zu scratch %zu\n", pl.tp, pl.mp, pl.gx, a.tiles,
+         pl.smem, pl.scratch);
+  write_file(argv[3], out);
+  return 0;
+}
+
 // N P d D n_valid linear obs tile sms C one_pass: seeded inputs for C class
 // blocks (K1; C = 1 otherwise), float64 reference
 int main(int argc, char** argv) {
   if (std::string(argv[1]) == "rank") return run_rank(argv);
   if (std::string(argv[1]) == "obs") return run_obs_file(argv);
+  if (std::string(argv[1]) == "sgpr") return run_sgpr(argv);
   const int N = atoi(argv[1]), P = atoi(argv[2]), d = atoi(argv[3]), D = atoi(argv[4]),
             nv = atoi(argv[5]), lin = atoi(argv[6]), obs = atoi(argv[7]), tile = atoi(argv[8]),
             sms = atoi(argv[9]), C = atoi(argv[10]), one_pass = atoi(argv[11]);
@@ -605,4 +652,90 @@ def test_banked_obs_loglik_under_cpu_emulation(emulator, tmp_path, N, B, Pb, d, 
     quad = np.sum(ks * (Kinv.astype(np.float64) @ ks), axis=0)
     qres = np.sum(lam2 * (mean - np.repeat(z, Pb, axis=0)) ** 2, axis=1)
     want = np.concatenate([quad, qres])
+    assert np.max(np.abs(got - want) / (1 + np.abs(want))) < 1e-4
+
+
+def _sgpr_case(rng, M, P, din, Dout, C, lin):
+    """Float32 inputs of K4 from the SGPR of C random GPs, as
+    ``precompute_host`` builds it (Kmm with a unit jitter, 2 M data points,
+    sigma = 1), so the factors are well-conditioned and the variance is a
+    true posterior variance."""
+    f32 = np.float32
+    log_ls = 0.3 * rng.normal(size=din)
+    log_lin = 0.3 * rng.normal(size=din + 1) - 1.0
+    ils, w2 = np.exp(-log_ls), np.exp(log_lin) ** 2
+
+    def kern(a, b):
+        k = np.exp(-np.sum(((a[:, None, :] - b[None, :, :]) * ils) ** 2, axis=2))
+        return k + ((a * w2[:din]) @ b.T + w2[din] if lin else 0.0)
+
+    Z, Lm, LB = (np.zeros((C, M, din)), np.zeros((C, M, M)), np.zeros((C, M, M)))
+    for c in range(C):
+        Z[c] = rng.normal(size=(M, din))
+        Lm[c] = np.linalg.cholesky(kern(Z[c], Z[c]) + np.eye(M))
+        A = np.linalg.solve(Lm[c], kern(Z[c], rng.normal(size=(2 * M, din))))
+        LB[c] = np.linalg.cholesky(np.eye(M) + A @ A.T)
+    return dict(Z=Z.astype(f32), xs=rng.normal(size=(P, din)).astype(f32), Lm=Lm.astype(f32),
+                LB=LB.astype(f32), beta=rng.normal(size=(C, M, Dout)).astype(f32),
+                log_ls=log_ls.astype(f32), log_lin=log_lin.astype(f32),
+                log_sn=np.array([-1.5], f32), num2=np.array([0.01], f32))
+
+
+def _sgpr_f64(x, lin, noise):
+    """The prediction in float64 from the float32 inputs."""
+    g = {k: v.astype(np.float64) for k, v in x.items()}
+    din = g["xs"].shape[1]
+    ils, w2 = np.exp(-g["log_ls"]), np.exp(g["log_lin"]) ** 2
+    xs = g["xs"]
+    kss = np.ones(len(xs))
+    if lin:
+        kss = kss + (np.sum(xs * xs * w2[:din], axis=1) + w2[din])
+    if noise:
+        kss = kss + np.exp(g["log_sn"][0]) ** 2 + g["num2"][0]
+    means, variances = [], []
+    for Z, Lm, LB, beta in zip(g["Z"], g["Lm"], g["LB"], g["beta"]):
+        ks = np.exp(-np.sum(((Z[:, None, :] - xs[None, :, :]) * ils) ** 2, axis=2))
+        if lin:
+            ks = ks + (Z * w2[:din]) @ xs.T + w2[din]
+        v1 = np.linalg.solve(Lm, ks)
+        v2 = np.linalg.solve(LB, v1)
+        means.append(ks.T @ beta)
+        variances.append(np.maximum(kss - np.sum(v1 * v1, 0) + np.sum(v2 * v2, 0), 1e-12))
+    return np.stack(means), np.stack(variances)
+
+
+@pytest.mark.parametrize("M,P,din,Dout,C,lin,noise,tp,sms", [
+    (5, 50, 2, 5, 1, 0, 1, 128, 132),       # the observation GP, M padded to 32, one ragged tile
+    (37, 300, 2, 35, 1, 0, 1, 128, 132),    # the bench's D, two row blocks, ragged last tile
+    (37, 100, 2, 45, 1, 0, 1, 128, 132),    # outputs past one staged chunk of beta
+    (37, 100, 4, 4, 3, 1, 0, 128, 132),     # dynamics, d4's width, three classes
+    (128, 260, 2, 35, 1, 0, 1, 128, 132),   # hourlong's observation GP
+    (128, 200, 2, 2, 3, 1, 0, 128, 132),    # hourlong's dynamics GPs over three classes
+    (128, 70, 4, 4, 1, 1, 1, 128, 132),     # din 4 with the linear term and the noise
+    (160, 130, 4, 3, 3, 1, 0, 128, 132),    # five row blocks, the last one padded
+    (100, 40, 6, 3, 1, 1, 0, 128, 132),     # din past the float4 rows
+    (384, 90, 3, 3, 2, 1, 0, 128, 132),     # c8n5120's M and widths
+    (600, 70, 2, 2, 1, 1, 0, 64, 132),      # 64-particle blocks
+    (900, 20, 2, 2, 1, 1, 0, 32, 132),      # 32-particle blocks
+    (1430, 40, 2, 3, 1, 1, 0, "global", 132),  # past shared memory: the global scratch
+    (1420, 140, 3, 2, 3, 1, 1, "global", 1),   # a block looping over two particle tiles
+])
+def test_sgpr_predict_under_cpu_emulation(emulator, tmp_path, M, P, din, Dout, C, lin, noise,
+                                          tp, sms):
+    """K4 as its launcher plans it, against the SGPR prediction in float64
+    (mean and clamped variance), inside the shared memory and the global
+    scratch it asks for."""
+    rng = np.random.default_rng(M * 7 + P + din + C)
+    x = _sgpr_case(rng, M, P, din, Dout, C, lin)
+    got, out = _run_files(emulator, tmp_path, "sgpr", list(x.values()), np.float32,
+                          (M, P, din, Dout, C, lin, noise, sms))
+    plan = {k: int(v) for k, v in re.findall(r"(\w+) (\d+)", out)}
+    if tp == "global":
+        assert plan["tp"] == 128 and plan["scratch"] > 0, out
+        assert (plan["gx"] < plan["tiles"]) == (sms == 1), out
+    else:
+        assert plan["tp"] == tp and plan["scratch"] == 0 and plan["gx"] == plan["tiles"], out
+    mean, var = _sgpr_f64(x, lin, noise)
+    assert (var > 1e-3).mean() > 0.5  # the variances are not all at the clamp
+    want = np.concatenate([mean.ravel(), var.ravel()])
     assert np.max(np.abs(got - want) / (1 + np.abs(want))) < 1e-4
