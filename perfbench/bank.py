@@ -79,6 +79,7 @@ def transition(cfg: dict, mix: dict) -> np.ndarray:
 @dataclass
 class Bank:
     sut: system.FilterSystem
+    cfg: dict
     asset: dict
     mix: dict
     seed: int
@@ -106,6 +107,13 @@ def setup(model, cfg, asset, mix, seed, device, wrap, reference) -> Bank:
         raise ValueError("frames_per_stream must hold whole trials")
     T = transition(cfg, mix)
     sut = system.FilterSystem(model, T, Pb, cfg["filter"])
+    # the reference builds the configuration's posterior: the program must
+    # serve that one
+    got = sut.deployment()
+    stated = {k: cfg.get(k) for k in got}
+    if got != stated:
+        raise RuntimeError(f"{cfg['name']}: the program deployed {got}, not the configuration's "
+                           f"{stated}")
     gens = []
     for k in range(4):
         gens.append(torch.Generator(device=device))
@@ -114,7 +122,7 @@ def setup(model, cfg, asset, mix, seed, device, wrap, reference) -> Bank:
                                 device)
     Zh = traffic.host_frames(Z)
     del Z
-    return Bank(sut=sut, asset=asset, mix=mix, seed=seed, device=device, T=T, Zh=Zh,
+    return Bank(sut=sut, cfg=cfg, asset=asset, mix=mix, seed=seed, device=device, T=T, Zh=Zh,
                 trial_len=L, warm=Draws(B, Pb, sut.d, sut.dtype, gens[1], device),
                 draws=Draws(B, Pb, sut.d, sut.dtype, gens[2], device),
                 init=wrap("init", lambda: sut.init(B, gens[3])),
@@ -139,14 +147,14 @@ def finish(bank: Bank, res: dict, setup_s: float, frame_p95_ms, more, frames, re
         out["profile"] = trace.profile(lambda: more(mix["profile_steps"]))
     inits = {f: (s.x, s.c) for f, s in res["inits"].items()}
     ends = {f: s.c for f, s in res["ends"].items()}
-    probs_read, Zh, T, asset, seed, device = (res["probs"], bank.Zh, bank.T, bank.asset,
-                                             bank.seed, bank.device)
+    probs_read, Zh, T, cfg, asset, seed, device = (res["probs"], bank.Zh, bank.T, bank.cfg,
+                                                  bank.asset, bank.seed, bank.device)
     d, dtype = bank.sut.d, bank.sut.dtype
     banks = sorted(int(b) for b in np.random.default_rng(seed).choice(
         B, size=min(B, mix["check_banks"]), replace=False))
 
     def run_check():
-        post = ref_gp.posterior(asset, device, "float64")
+        post = ref_gp.posterior(asset, device, "float64", cfg)
         g = torch.Generator(device=device)
         g.manual_seed(seed + 2)
         replay = Draws(B, Pb, d, dtype, g, device)

@@ -6,8 +6,9 @@
 For each program seed, one run of the cell as the benchmark makes it; for
 each control seed, the same run with the reference at TF32 in the
 program's place (``faults.py``); with ``--faults``, each fault on the
-control seeds.  Prints one JSON line a run: the kind, the seed and the
-numbers the check compares.  The benchmark's runs never run this.
+control seeds.  Prints one JSON line a run: the kind, the seed, the
+numbers the check compares, the posterior the program deployed and the
+run's peak device memory.  The benchmark's runs never run this.
 """
 
 import argparse
@@ -44,12 +45,15 @@ def main(argv=None) -> int:
     for kind, seed in runs:
         t0 = time.perf_counter()
         secs = args.seconds if kind == "program" else (args.control_seconds or args.seconds)
-        wrap = None if kind == "program" else faults.filter_wrap(kind, asset, T, "cuda")
+        wrap = None if kind == "program" else faults.filter_wrap(kind, cfg, asset, T, "cuda")
+        torch.cuda.reset_peak_memory_stats()
         out = harness.run_cell(args.workload, seed, secs, False, "cuda", t0, wrap=wrap,
                                spec=spec)
         nums = {k: v for k, v in out["numbers"].items() if isinstance(v, (int, float))}
         print(json.dumps({"kind": kind, "seed": seed, "correct": out["correct"],
-                          "numbers": nums, "timed": out["timed"], "e2e": out["e2e"],
+                          "numbers": nums, "posterior": out["posterior"],
+                          "memory_peak_bytes": out["memory_peak_bytes"],
+                          "timed": out["timed"], "e2e": out["e2e"],
                           "seconds": time.perf_counter() - t0}), flush=True)
         torch.cuda.empty_cache()
     return 0

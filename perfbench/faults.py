@@ -34,10 +34,11 @@ def _outputs(probs, mean):
                            state_mean=mean)
 
 
-def filter_control(asset, T, device):
-    """The reference filter step at TF32, with the program's step's
-    signature: (state, z, noise) -> (state, readouts)."""
-    post = ref_gp.posterior(asset, device, "tf32")
+def filter_control(cfg, asset, T, device):
+    """The reference filter step at TF32, on the configuration's posterior,
+    with the program's step's signature: (state, z, noise) -> (state,
+    readouts)."""
+    post = ref_gp.posterior(asset, device, "tf32", cfg)
     Tm = torch.as_tensor(T, device=device)
 
     def step(state, z, noise):
@@ -70,7 +71,7 @@ def _scan_of(step):
     return scan
 
 
-def filter_wrap(kind: str, asset, T, device):
+def filter_wrap(kind: str, cfg, asset, T, device):
     """``wrap(call, fn)`` for ``run_cell`` on a filter cell: ``fn`` is the
     program's bank step (``call`` 'step') or scan ('scan'), and comes back
     broken; the bank's initialisation ('init') is left as it is.  A step's
@@ -110,7 +111,7 @@ def filter_wrap(kind: str, asset, T, device):
         if call == "init":
             return fn
         if kind == "control":
-            step = filter_control(asset, T, device)
+            step = filter_control(cfg, asset, T, device)
             return step if call == "step" else _scan_of(step)
         return {"stale": stale, "half": half, "altered": altered}[kind](fn, call)
 

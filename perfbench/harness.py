@@ -10,6 +10,21 @@ the reference ``reference/<name>.py`` that follows it),
 ``work/<family>_<kind>.py`` (the model FLOPs and kernel work of a step),
 ``workloads/<cell>.json`` (the limits of the cell's check) and
 ``metrics/<metric>.py`` (a reader of the traced run's summary).
+
+A configuration's ``family`` names the posterior its cells deploy, which
+the reference builds again and the program must deploy
+(``bank.setup`` refuses any other):
+
+- ``"exact"``: an exact ``GPMDM``'s own posterior;
+- ``"sparse"``: a ``SparseGPMDM``'s own SGPR posterior, of ``My`` and
+  ``Mx`` inducing inputs;
+- ``"sparsified"``: an exact model served by a persisted post-hoc SGPR
+  distillation that its ``deploy_recommendation`` names: ``My``, ``Mx``
+  (each class's, as the entry holds it) and ``method`` (``"kmeans"`` or
+  ``"stride"``);
+- ``"compressed"``: an exact model served by a persisted compressed
+  posterior: ``rank_y`` and ``rank_x`` (the largest class's), as the
+  entry holds them.
 """
 
 from __future__ import annotations
@@ -73,11 +88,45 @@ def load_config(name: str) -> tuple[dict, dict, Path]:
     offs = ref_gp.class_row_offsets(asset)
     if int(offs[-1]) != cfg["Ny"]:
         raise RuntimeError(f"{name}: the asset has Ny = {int(offs[-1])}, not {cfg['Ny']}")
-    if cfg["family"] == "sparse":
+    check_deployment(cfg, asset)
+    return cfg, asset, path
+
+
+def check_deployment(cfg: dict, asset: dict) -> None:
+    """Raises unless the asset deploys the posterior that the
+    configuration's ``family`` states (module docstring): the model's
+    class, the persisted entry, and no deployment recommendation that
+    names another."""
+    name, family = cfg["name"], cfg["family"]
+    meta = asset["meta"]
+    rec = meta.get("deploy_recommendation") or {}
+    want = "SparseGPMDM" if family == "sparse" else "GPMDM"
+    if meta["model_class"] != want:
+        raise RuntimeError(f"{name}: family {family!r} needs a {want}, the asset holds a "
+                           f"{meta['model_class']}")
+    if family == "sparse":
         p = asset["params"]
         if p["Zy"].shape[0] != cfg["My"] or p["Zx"].shape[1] != cfg["Mx"]:
             raise RuntimeError(f"{name}: the asset's inducing sets are not My, Mx as stated")
-    return cfg, asset, path
+        return
+    if family == "sparsified":
+        key = ref_gp.sparsified_entry(asset, cfg)["key"]
+        named = (rec.get("M"), rec.get("Mx"), rec.get("method", "stride"))
+        if rec.get("family") != "sparsified" or named != key:
+            raise RuntimeError(f"{name}: the asset's deployment recommendation {rec or None} "
+                               f"does not name the distillation {key}")
+        return
+    if family == "compressed":
+        key = ref_gp.compressed_entry(asset, cfg)["key"]
+        if rec and (rec.get("family") != "compressed"
+                    or (rec.get("rank_y"), rec.get("rank_x")) != key[:2]):
+            raise RuntimeError(f"{name}: the asset's deployment recommendation {rec} "
+                               f"overrides the compressed posterior {key}")
+        return
+    if family != "exact":
+        raise RuntimeError(f"{name}: unknown family {family!r}")
+    if rec and rec.get("family") != "exact":
+        raise RuntimeError(f"{name}: the asset's deployment recommendation {rec} is not exact")
 
 
 def load_module(kind: str, name: str):

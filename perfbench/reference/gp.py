@@ -1,9 +1,13 @@
 """Plain GP pieces of the reference: the asset's arrays, the kernels, and
-the exact and SGPR posteriors worked out again from the trained
-parameters in float64.
+the posterior that a configuration's cells deploy, worked out again from
+the trained parameters in float64: the exact posterior, a sparse model's
+own SGPR posterior, an exact model's SGPR distillation, or its
+compressed posterior (``posterior``).
 
 Nothing here imports the program: the arrays come from the checkpoint
-file itself (``numpy.load``), and every factor is computed anew.  The
+file itself (``numpy.load``), and every factor is computed anew; of a
+persisted deployment only its key, a distillation's inducing inputs and
+a compressed entry's ranks are read, never a factor.  The
 per-frame products take a precision: ``'float64'``, or ``'tf32'``, the
 control, which computes in float32 with every product's operands rounded
 to TF32's 10-bit mantissa (what the card's tensor cores do with float32
@@ -26,15 +30,18 @@ SPARSE_PARAMS = PARAMS + ("Zy", "Zx")
 #: Jitters of the configuration's objective and posterior, by its dtype:
 #: the SGPR noise jitter, Kuu's jitter for a float32 model, and the
 #: relative floor of a float32 Cholesky (a share of the mean diagonal).
+#: A float32 exact model's distillation takes the same two SGPR jitters:
+#: the program factors it with the sparse model's own formulas, keyed on
+#: the model's dtype, so no constant differs.
 SGPR_NOISE_JITTER = 1e-6
 KUU_JITTER_F32 = 1e-4
 REL_FLOOR_F32 = 1e-5
 
 
 def load_asset(path) -> dict:
-    """The checkpoint's meta, parameters, Adam state and observation
-    sequences, as numpy (parameters and moments widened to float64; the
-    observations as stored)."""
+    """The checkpoint's meta, parameters, Adam state, observation sequences
+    and persisted deployments, as numpy (parameters, moments and inducing
+    inputs widened to float64; the observations as stored)."""
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta_json"]).decode("utf-8"))
         fields = meta["param_fields"]
@@ -43,8 +50,64 @@ def load_asset(path) -> dict:
         seqs = [[np.asarray(z[f"obs_{c}_{i}"]) for i in range(n)]
                 for c, n in enumerate(meta["n_sequences_per_class"])]
         opt = [np.asarray(z[f"opt_{i}"]) for i in range(meta.get("n_opt_leaves", 0))]
+        entries = _entries(z, meta)
     return {"meta": meta, "cfg": meta["config"], "fields": fields, "params": params,
-            "params_f32": params_f32, "seqs": seqs, "opt": opt}
+            "params_f32": params_f32, "seqs": seqs, "opt": opt, "entries": entries}
+
+
+def _entries(z, meta: dict) -> dict:
+    """The persisted deployments of an exact model, by the keys the
+    checkpoint's meta holds (``<name>_keys``, each entry's arrays
+    ``<prefix>_<j>_<field>`` with j from ``<name>_entry_idx``):
+    'sparsified', each with its key (M, Mx or None, method) and its
+    inducing inputs Zy (My, d) and Zx (C, Mx, din); 'compressed', each
+    with its key (rank_y or None, rank_x or None, tol) and the ranks it
+    holds, its eigenbases' widths, read from the arrays' headers."""
+    def keyed(name):
+        keys = meta.get(f"{name}_keys") or []
+        return zip(keys, meta.get(f"{name}_entry_idx", range(len(keys))))
+
+    sparsified = [{"key": (int(k[0]), None if k[1] is None else int(k[1]),
+                           k[2] if len(k) > 2 else "stride"),
+                   "Zy": np.asarray(z[f"sparsified_{j}_Zy"], dtype=np.float64),
+                   "Zx": np.asarray(z[f"sparsified_{j}_Zx"], dtype=np.float64)}
+                  for k, j in keyed("sparsified")]
+    compressed = [{"key": (k[0], k[1], float(k[2])),
+                   "rank_y": _npz_shape(z, f"comp_{j}_Uy")[1],
+                   "rank_x": _npz_shape(z, f"comp_{j}_Uxc")[2]}
+                  for k, j in keyed("compressed")]
+    return {"sparsified": sparsified, "compressed": compressed}
+
+
+def _npz_shape(z, name: str) -> tuple:
+    """The shape of the array ``name`` of an open npz, from its header."""
+    with z.zip.open(f"{name}.npy") as f:
+        version = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        return read(f)[0]
+
+
+def sparsified_entry(asset: dict, cfg: dict) -> dict:
+    """The persisted distillation that the configuration states: ``My``
+    inducing inputs for the observation GP, ``Mx`` for each class's
+    dynamics GP, chosen by ``method``."""
+    for e in asset["entries"]["sparsified"]:
+        M, _, method = e["key"]
+        if (M, e["Zx"].shape[1], method) == (cfg["My"], cfg["Mx"], cfg["method"]):
+            return e
+    raise RuntimeError(f"{cfg['name']}: the asset holds no distillation with My = {cfg['My']}, "
+                       f"Mx = {cfg['Mx']}, method {cfg['method']!r}")
+
+
+def compressed_entry(asset: dict, cfg: dict) -> dict:
+    """The persisted compressed posterior of the ranks the configuration
+    states (``rank_y``, ``rank_x``)."""
+    for e in asset["entries"]["compressed"]:
+        if (e["rank_y"], e["rank_x"]) == (cfg["rank_y"], cfg["rank_x"]):
+            return e
+    raise RuntimeError(f"{cfg['name']}: the asset holds no compressed posterior of ranks "
+                       f"{cfg['rank_y']}, {cfg['rank_x']}")
 
 
 def class_pairs(asset: dict) -> list:
@@ -137,33 +200,43 @@ class Hypers:
         self.x_sn2 = float(np.exp(params["x_log_sigma_n"])) ** 2 + cfg["sigma_n_num_X"] ** 2
 
 
+def exact_grams(asset: dict, device):
+    """The exact model's Grams in float64, from its hyperparameters: the
+    latents X, the observations Y, Ky with the noise on its diagonal, and
+    per class (Xin, Xout, Kc), Kc with the noise and the class jitter on
+    its diagonal."""
+    cfg, p = asset["cfg"], asset["params"]
+    f64 = dict(dtype=torch.float64, device=device)
+    h64 = Hypers(p, cfg, torch.float64, device)
+    X = torch.as_tensor(p["X"], **f64)
+    Y = torch.as_tensor(np.concatenate([s for seqs in asset["seqs"] for s in seqs]), **f64)
+    Ky = rbf(X, X, h64.y_inv_ls) + h64.y_sn2 * torch.eye(X.shape[0], **f64)
+    grams = []
+    for rin, rout in class_pairs(asset):
+        Xin = X[torch.as_tensor(rin, device=device)]
+        Xout = X[torch.as_tensor(rout, device=device)]
+        n = Xin.shape[0]
+        Kc = (x_kernel(Xin, Xin, h64.x_inv_ls, h64.x_lin_w2)
+              + (h64.x_sn2 + cfg["class_jitter"]) * torch.eye(n, **f64))
+        grams.append((Xin, Xout, Kc))
+    return X, Y, Ky, grams
+
+
 class ExactPosterior:
     """The exact GPMDM's predictive posteriors.  Factors in float64
     (Ky^-1, Ky^-1 Y; per class (K_c + jitter I)^-1 and its weights),
     deployed in the compute dtype of ``prec``."""
 
     def __init__(self, asset: dict, device, prec: str = "float64"):
-        cfg, p = asset["cfg"], asset["params"]
-        f64 = dict(dtype=torch.float64, device=device)
         self.prec = prec
         self.dtype = torch.float64 if prec == "float64" else torch.float32
-        self.h = Hypers(p, cfg, self.dtype, device)
-        h64 = Hypers(p, cfg, torch.float64, device)
-        X = torch.as_tensor(p["X"], **f64)
-        Y = torch.as_tensor(np.concatenate([s for seqs in asset["seqs"] for s in seqs]), **f64)
-        Ky = rbf(X, X, h64.y_inv_ls) + h64.y_sn2 * torch.eye(X.shape[0], **f64)
+        self.h = Hypers(asset["params"], asset["cfg"], self.dtype, device)
+        X, Y, Ky, grams = exact_grams(asset, device)
         cast = lambda a: a.to(self.dtype).contiguous()  # noqa: E731
         self.X, self.Ky_inv, self.Ay = cast(X), cast(torch.linalg.inv(Ky)), cast(
             torch.linalg.solve(Ky, Y))
-        self.classes = []
-        for rin, rout in class_pairs(asset):
-            Xin = X[torch.as_tensor(rin, device=device)]
-            Xout = X[torch.as_tensor(rout, device=device)]
-            n = Xin.shape[0]
-            Kc = (x_kernel(Xin, Xin, h64.x_inv_ls, h64.x_lin_w2)
-                  + (h64.x_sn2 + cfg["class_jitter"]) * torch.eye(n, **f64))
-            self.classes.append((cast(Xin), cast(torch.linalg.inv(Kc)),
-                                 cast(torch.linalg.solve(Kc, Xout))))
+        self.classes = [(cast(Xin), cast(torch.linalg.inv(Kc)), cast(torch.linalg.solve(Kc, Xout)))
+                        for Xin, Xout, Kc in grams]
         self.D = Y.shape[1]
 
     def dynamics(self, x: torch.Tensor):
@@ -200,10 +273,15 @@ class SparsePosterior:
     jitter I), A = Lm^-1 Kmn / sigma, LB = chol(I + A A^T), beta =
     Lm^-T LB^-T LB^-1 A Y / sigma; at x*, mean k*m beta and common variance
     k** - |Lm^-1 km*|^2 + |LB^-1 Lm^-1 km*|^2, clamped at 1e-12.  Factors
-    in float64; the variance by products with the two inverses."""
+    in float64; the variance by products with the two inverses.
 
-    def __init__(self, asset: dict, device, prec: str = "float64"):
+    ``inducing`` (Zy, Zx) replaces the parameters' inducing inputs: an
+    exact model's distillation is its own hyperparameters, latents and
+    observations with the inducing inputs that the deployment chose."""
+
+    def __init__(self, asset: dict, device, prec: str = "float64", inducing=None):
         cfg, p = asset["cfg"], asset["params"]
+        Zy_all, Zx_all = inducing if inducing is not None else (p["Zy"], p["Zx"])
         if cfg["dtype"] != "float32":
             raise NotImplementedError("the reference takes a float32 model's jitters")
         f64 = dict(dtype=torch.float64, device=device)
@@ -228,13 +306,13 @@ class SparsePosterior:
             Wi = torch.linalg.solve_triangular(LB, Vi, upper=False)
             return cast(beta / math.sqrt(sigma2)), cast(Vi), cast(Wi)
 
-        Zy = torch.as_tensor(p["Zy"], **f64)
+        Zy = torch.as_tensor(Zy_all, **f64)
         self.Zy = cast(Zy)
         self.y = sgpr(rbf(Zy, Zy, h64.y_inv_ls), rbf(Zy, X, h64.y_inv_ls), Y,
                       h64.y_sn2 + SGPR_NOISE_JITTER)
         self.classes = []
         for c, (rin, rout) in enumerate(class_pairs(asset)):
-            Zx = torch.as_tensor(p["Zx"][c], **f64)
+            Zx = torch.as_tensor(Zx_all[c], **f64)
             Xin = X[torch.as_tensor(rin, device=device)]
             Xout = X[torch.as_tensor(rout, device=device)]
             self.classes.append((cast(Zx),) + sgpr(
@@ -271,7 +349,104 @@ class SparsePosterior:
                 - 0.5 * self.D * math.log(2 * math.pi))
 
 
-def posterior(asset: dict, device, prec: str = "float64"):
-    """The posterior of the asset's family."""
-    cls = SparsePosterior if asset["meta"]["model_class"] == "SparseGPMDM" else ExactPosterior
-    return cls(asset, device, prec)
+class CompressedPosterior:
+    """An exact model's compressed posterior: the exact mean, and each
+    Gram's quad through its top eigenpairs, K = U diag(mu) U^T, q kept:
+
+        quad(k) = sum_{i<=q} (u_i^T k)^2 / mu_i + |k - U_q U_q^T k|^2 / s,
+
+    s the Gram's shift on its diagonal (the noise; for the dynamics also
+    the class jitter).  The residual is a vector, k less its projection,
+    squared and summed: the equal scalar form |k|^2 / s - ... cancels
+    catastrophically.  Each Gram keeps the pairs that the entry's ``key``
+    (rank_y, rank_x, tol) picks: a pinned rank, at most the Gram's size,
+    or else those with (mu - s) / mu > tol, largest first, at least one;
+    an eigenvalue below s counts as s.  The common variance is clamped at
+    1e-9.  Grams, eigenpairs and weights in float64 from the
+    hyperparameters; ``ranks`` (rank_y, rank_x), the ranks the
+    configuration states, must come out (rank_x: the largest class's)."""
+
+    def __init__(self, asset: dict, device, prec: str, key, ranks):
+        self.prec = prec
+        self.dtype = torch.float64 if prec == "float64" else torch.float32
+        self.h = Hypers(asset["params"], asset["cfg"], self.dtype, device)
+        X, Y, Ky, grams = exact_grams(asset, device)
+        cast = lambda a: a.to(self.dtype).contiguous()  # noqa: E731
+        rank_y, rank_x, tol = key
+        self.X, self.Ay = cast(X), cast(torch.linalg.solve(Ky, Y))
+        h = self.h
+        self.s_y = h.y_sn2
+        self.s_x = h.x_sn2 + asset["cfg"]["class_jitter"]
+        self.Uy, self.inv_mu_y = (cast(a) for a in _top_pairs(Ky, self.s_y, rank_y, tol))
+        self.classes = []
+        for Xin, Xout, Kc in grams:
+            U, inv_mu = _top_pairs(Kc, self.s_x, rank_x, tol)
+            self.classes.append((cast(Xin), cast(torch.linalg.solve(Kc, Xout)), cast(U),
+                                 cast(inv_mu)))
+        got = (self.Uy.shape[1], max(U.shape[1] for _, _, U, _ in self.classes))
+        if got != tuple(ranks):
+            raise RuntimeError(f"the compressed reference keeps ranks {got}, not {tuple(ranks)}")
+        self.D = Y.shape[1]
+
+    def _quad(self, ks, U, inv_mu, s):
+        UK = mm(U.T, ks, self.prec)  # (q, P)
+        resid = ks - mm(U, UK, self.prec)
+        return torch.sum(inv_mu[:, None] * UK * UK, dim=0) + torch.sum(resid * resid, dim=0) / s
+
+    def dynamics(self, x: torch.Tensor):
+        h, means, variances = self.h, [], []
+        kss = x_diag(x, h.x_lin_w2)
+        for Xin, A, U, inv_mu in self.classes:
+            ks = x_kernel(Xin, x, h.x_inv_ls, h.x_lin_w2)  # (n, P)
+            means.append(mm(ks.T, A, self.prec))
+            var_c = torch.clamp(kss - self._quad(ks, U, inv_mu, self.s_x), min=1e-9)
+            variances.append(var_c[:, None] / h.x_lam2[None, :])
+        return torch.stack(means), torch.stack(variances)
+
+    def log_lik(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        B, Pb, d = x.shape
+        h = self.h
+        xf = x.reshape(-1, d)
+        ks = rbf(self.X, xf, h.y_inv_ls)
+        mean = mm(ks.T, self.Ay, self.prec).reshape(B, Pb, -1)
+        var_c = torch.clamp(1.0 + h.y_sn2 - self._quad(ks, self.Uy, self.inv_mu_y, self.s_y),
+                            min=1e-9)
+        var = torch.clamp(var_c[:, None] / h.y_lam2[None, :], min=1e-12).reshape(B, Pb, -1)
+        resid = z[:, None, :] - mean
+        return (-0.5 * torch.sum(resid ** 2 / var, dim=2) - 0.5 * torch.sum(torch.log(var), dim=2)
+                - 0.5 * self.D * math.log(2 * math.pi))
+
+
+def _top_pairs(K: torch.Tensor, s: float, rank, tol: float):
+    """(U (N, q), 1 / mu (q,)): the top eigenpairs of the float64 Gram K
+    with the shift s on its diagonal, as ``CompressedPosterior`` keeps
+    them."""
+    mu, U = torch.linalg.eigh(K)
+    mu, U = mu.flip(0), U.flip(1)
+    if rank is None:
+        share = torch.clamp((mu - s) / torch.clamp(mu, min=1e-300), 0.0, 1.0)
+        q = int((share > tol).sum())
+    else:
+        q = min(int(rank), K.shape[0])
+    q = max(q, 1)
+    return U[:, :q], 1.0 / torch.clamp(mu[:q], min=s)
+
+
+def posterior(asset: dict, device, prec: str, cfg: dict):
+    """The posterior that the configuration's cells deploy, by its
+    ``family``: 'exact'; 'sparse', a sparse model's own; 'sparsified', the
+    exact model's distillation on the inducing inputs of the persisted
+    entry that the configuration states; 'compressed', the exact model's
+    compressed posterior, truncated as the stated entry was."""
+    family = cfg["family"]
+    if family == "exact":
+        return ExactPosterior(asset, device, prec)
+    if family == "sparse":
+        return SparsePosterior(asset, device, prec)
+    if family == "sparsified":
+        e = sparsified_entry(asset, cfg)
+        return SparsePosterior(asset, device, prec, inducing=(e["Zy"], e["Zx"]))
+    if family == "compressed":
+        return CompressedPosterior(asset, device, prec, compressed_entry(asset, cfg)["key"],
+                                   (cfg["rank_y"], cfg["rank_x"]))
+    raise ValueError(f"{cfg['name']}: unknown family {family!r}")

@@ -36,6 +36,18 @@ class FilterSystem:
     def posterior_kind(self) -> str:
         return type(self.post).__name__
 
+    def deployment(self) -> dict:
+        """The deployed posterior in a configuration's terms: its
+        ``family``, from its type and, for an SGPR posterior, whether it was
+        distilled from an exact model; its inducing sets or its ranks."""
+        p, kind = self.post, self.posterior_kind
+        if kind == "CompressedPosterior":
+            return {"family": "compressed", "rank_y": p.rank_y, "rank_x": p.rank_x}
+        if kind == "SparsePosterior":
+            return {"family": "sparsified" if p.distilled else "sparse",
+                    "My": p.Zy.shape[0], "Mx": p.Zx.shape[1]}
+        return {"family": "exact" if kind == "Posterior" else kind}
+
     def noise(self, u_trans, eps, u_res):
         return self.pf.PFNoise(u_trans=u_trans, eps_dyn=eps, u_res=u_res)
 

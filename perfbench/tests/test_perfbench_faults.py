@@ -22,7 +22,7 @@ def _filter_wrap(cell, kind):
     c = harness.cell_entry(harness.load_spec(), cell)
     cfg, asset, _ = harness.load_config(c["config"])
     T = bank.transition(cfg, traffic.load_mix(c["traffic"]))
-    return faults.filter_wrap(kind, asset, T, "cpu")
+    return faults.filter_wrap(kind, cfg, asset, T, "cpu")
 
 
 @pytest.mark.parametrize("kind", (None,) + faults.KINDS)

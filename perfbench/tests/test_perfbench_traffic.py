@@ -34,22 +34,36 @@ def test_trials_are_constant_class_blocks():
     assert torch.equal(blocks, blocks[:, :1].expand_as(blocks))
 
 
-@pytest.mark.parametrize("sig", [0.0, 1.0])
-def test_trial_is_make_cycles_motion(sig):
+#: Stream shapes: the classic task and the signature task at 2 classes, and
+#: c8n5120's 8-class signature streams (D 10, 80-frame trials).
+SHAPES = {"0.0": (2, SHAPE),
+          "1.0": (2, {**SHAPE, "class_signature": 1.0, "center_spread": 3.0}),
+          "c8n5120": (8, {"trial_len": 80, "D": 10, "noise": 0.02, "center_spread": 3.0,
+                          "class_signature": 1.0})}
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_trial_is_make_cycles_motion(case):
     """Without noise, a trial equals the program's generator at the class
     and phase the seed drew."""
     from gpmdm_tpu_torch.data import synthetic
 
-    shape = {**SHAPE, "noise": 0.0, "class_signature": sig, "center_spread": 3.0 * sig}
-    Z, c = streams(3, shape, B=2, F=120)
-    # the phases: the second draw after the classes, as make_streams makes them
+    C, shape = SHAPES[case]
+    shape = {**shape, "noise": 0.0}
+    L, D, B, n_trials = shape["trial_len"], shape["D"], 4, 4
     g = torch.Generator()
     g.manual_seed(3)
-    torch.randint(0, 2, (2, 2), generator=g)
-    phase = 2 * np.pi * torch.rand(2, 2, generator=g, dtype=torch.float64)
-    for t in range(2):
-        for b in range(2):
-            want = synthetic.make_cycle(60, int(c[60 * t, b]), 35, noise=0.0,
-                                        phase=float(phase[t, b]), center_spread=3.0 * sig,
-                                        class_signature=sig)
-            np.testing.assert_allclose(Z[60 * t:60 * (t + 1), b].numpy(), want, atol=2e-6)
+    Z, c = traffic.make_streams(shape, C, B, n_trials * L, g, "cpu")
+    # the phases: the second draw after the classes, as make_streams makes them
+    g.manual_seed(3)
+    torch.randint(0, C, (n_trials, B), generator=g)
+    phase = 2 * np.pi * torch.rand(n_trials, B, generator=g, dtype=torch.float64)
+    for t in range(n_trials):
+        for b in range(B):
+            want = synthetic.make_cycle(L, int(c[L * t, b]), D, noise=0.0,
+                                        phase=float(phase[t, b]),
+                                        center_spread=shape["center_spread"],
+                                        class_signature=shape["class_signature"])
+            np.testing.assert_allclose(Z[L * t:L * (t + 1), b].numpy(), want, atol=2e-6)
+    if C == 8:
+        assert len(c.unique()) > 4

@@ -34,6 +34,12 @@ def test_filter_flops():
         return P * (M_ * pair + 2 * M_ * dout + 2 * M_ * M_ + 4 * M_ + 2)
     assert ys.sparse_filter_flops(B, Pb, d, D, C, M, Mx) == (
         pred(M, d, D, False) + C * pred(Mx, d, d, True) + glue)
+    qy, qx = 3, 2
+    def comp(N_, din, dout, q, lin):
+        pair = 3 * din + 1 + (2 * din + 2 if lin else 0)
+        return P * (N_ * pair + 2 * N_ * dout + 4 * N_ * q + 2 * N_ + 3 * q + 1)
+    assert ys.compressed_filter_flops(B, Pb, d, D, C, n, N, qy, qx) == (
+        comp(N, d, D, qy, False) + C * comp(n, d, d, qx, True) + glue)
 
 
 def test_kernel_names():

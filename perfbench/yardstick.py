@@ -106,3 +106,24 @@ def sparse_filter_flops(B, Pb, d, D, C, My, Mx, back_step=1):
     din = d * back_step
     return (sgpr_predict_flops(My, P, d, D, False) + C * sgpr_predict_flops(Mx, P, din, d, True)
             + glue_flops(P, d, C, D))
+
+
+def compressed_predict_flops(N, P, din, Dout, q, has_linear):
+    """FLOPs of one compressed-posterior prediction at P points against N
+    training rows and q kept eigenpairs: the star kernel row, the exact
+    mean (2 N Dout a point), the projection onto the eigenbasis and the
+    residual vector (2 N q each), its squares and sum (2 N), the weighted
+    squares of the projection (3 q), and the variance's difference (1)."""
+    per_pair = 3 * din + 1 + (2 * din + 2 if has_linear else 0)
+    return P * (N * per_pair + 2 * N * Dout + 4 * N * q + 2 * N + 3 * q + 1)
+
+
+def compressed_filter_flops(B, Pb, d, D, C, n_max, Ny, rank_y, rank_x, back_step=1):
+    """Model FLOPs of one bank step through the compressed posterior: the
+    observation GP's prediction at every particle, every class's dynamics
+    GP's (each at the stated rank_x, the largest class's), and the glue."""
+    P = B * Pb
+    din = d * back_step
+    return (compressed_predict_flops(Ny, P, d, D, rank_y, False)
+            + C * compressed_predict_flops(n_max, P, din, d, rank_x, True)
+            + glue_flops(P, d, C, D))
