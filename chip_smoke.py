@@ -132,7 +132,9 @@ Phases, each printing one JSON line on stdout:
                (bench.py:327-366), reported.
              - sparsified_c8n5120: 'auto' must serve the persisted
                kmeans-384 distillation; path and the guard in 3 calls of
-               16 banks, gated at 0.90.
+               16 banks, gated at 0.90.  Each sparse path counts
+               the calls of the span sgpr.hoisted: two a frame on a
+               distillation's hoisted path, none where K4 runs.
              - sparsified_fleet: bench_model.npz's persisted M = 128
                distillation, 64 banks x 1,000 x 64 frames at
                quad_precision='high', best of 3, and its guard at P =
@@ -1186,11 +1188,17 @@ def main(argv) -> int:
         wall, o = timed_filter(flt, Zx)
         lp = check_launches(f"{label} path", len(Zx), exact=False,
                             k4=k4_per_frame(pfc, post) * len(Zx))
+        # the hoisted path's calls, two a frame where K4 makes none
+        hoisted = profiling.snapshot()["spans"].get("sgpr.hoisted", {"calls": 0})["calls"]
+        if hoisted != (2 - k4_per_frame(pfc, post)) * len(Zx):
+            raise AssertionError(f"{label} path: {hoisted} sgpr.hoisted calls in {len(Zx)} "
+                                 "frames")
         check_outputs(f"{label} path", o, len(Zx), m.n_classes)
         walls = [wall] + [timed_filter(flt, Zx)[0] for _ in range(runs - 1)]
         sparse_launches[f"{label}_path"] = lp
         return {"particles": N_PARTICLES, "frames": len(Zx), "path_launches": lp,
-                "fps": len(Zx) / min(walls), "walls_s": walls, "path_peak_gib": peak_gib()}
+                "hoisted_calls": hoisted, "fps": len(Zx) / min(walls), "walls_s": walls,
+                "path_peak_gib": peak_gib()}
 
     def k4_per_frame(config, post):
         """K4's launches a bank step on post: the observation GP's and every

@@ -36,9 +36,11 @@ branch on data is a ``torch.where``.
 
 The step runs in the span ``pf.step`` and its stages in ``pf.transition``,
 ``pf.dynamics``, ``pf.observation``, ``pf.readouts`` and ``pf.resample``
-(``utils.profiling``); a scan chunk in ``pf.scan``, a bank's
-initialisation in ``pf.init``, the deployment policy in
-``pf.resolve_posterior``.
+(``utils.profiling``), a sparse posterior's prediction inside
+``pf.dynamics`` and ``pf.observation`` in ``ops.k4`` (the solve path on
+the card) or ``sgpr.hoisted`` (the hoisted path, ``models.sparse``); a
+scan chunk in ``pf.scan``, a bank's initialisation in ``pf.init``, the
+deployment policy in ``pf.resolve_posterior``.
 """
 
 from __future__ import annotations

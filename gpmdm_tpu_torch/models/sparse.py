@@ -26,7 +26,7 @@ The JAX package computes these predictions in XLA, outside any Pallas
 kernel.  Here the solve path is ``ops.sgpr.sgpr_predict``: on the card
 one hand-written kernel (K4) from the star kernel to the mean and the
 variance, on the CPU ``torch.linalg.solve_triangular``; the hoisted path
-is ``torch.matmul``.
+is ``torch.matmul``, in the span ``sgpr.hoisted``.
 
 The factors come from the host in float64 (``precompute_host``), cast to
 the model dtype.  ``distill_host`` builds them for a trained exact model
@@ -62,6 +62,7 @@ from ..ops import kernels_host as KH
 from ..ops import linalg as LA
 from ..ops.sgpr import sgpr_predict, star_block
 from ..ops.layout import DataLayout, padded_class_indices
+from ..utils.profiling import span
 from .core import PARAM_FIELDS, host_f64, hyperprior_penalty, tensor_from_numpy
 
 #: The fields of ``SparseParams``, in the JAX package's order.
@@ -294,18 +295,20 @@ def _sgpr_predict(Z, Xstar, Lm, LB, beta, inverses, log_lengthscales, log_sigma_
     (..., N*), clamped at 1e-12, at ``Xstar`` against the inducing inputs
     ``Z`` (``ops.sgpr`` has the kernels).  ``inverses`` (``[Lm^-1; (Lm
     LB)^-1]``) selects the hoisted variance path; None, the per-frame
-    triangular solves (K4 on the card)."""
+    triangular solves (K4 on the card).  The hoisted path runs in the span
+    ``sgpr.hoisted`` (``utils.profiling``)."""
     if inverses is None:
         return sgpr_predict(Z, Xstar.contiguous(), Lm, LB, beta, log_lengthscales, log_sigma_n,
                             sigma_n_num, with_noise, log_lin_coeff)
-    Kstar_m, kss_diag = star_block(Z, Xstar, log_lengthscales, log_sigma_n, sigma_n_num,
-                                   with_noise, log_lin_coeff)
-    mean = Kstar_m.mT @ beta
-    M = Lm.shape[-1]
-    # both products at once; squared in place, nothing else reads them
-    sq = (inverses @ Kstar_m).square_()  # (..., 2M, N*)
-    s1, s2 = torch.sum(sq[..., :M, :], dim=-2), torch.sum(sq[..., M:, :], dim=-2)
-    return mean, torch.clamp(kss_diag - s1 + s2, min=1e-12)
+    with span("sgpr.hoisted"):
+        Kstar_m, kss_diag = star_block(Z, Xstar, log_lengthscales, log_sigma_n, sigma_n_num,
+                                       with_noise, log_lin_coeff)
+        mean = Kstar_m.mT @ beta
+        M = Lm.shape[-1]
+        # both products at once; squared in place, nothing else reads them
+        sq = (inverses @ Kstar_m).square_()  # (..., 2M, N*)
+        s1, s2 = torch.sum(sq[..., :M, :], dim=-2), torch.sum(sq[..., M:, :], dim=-2)
+        return mean, torch.clamp(kss_diag - s1 + s2, min=1e-12)
 
 
 def precompute_host(params, Y, cfg: GPMDMConfig, layout: DataLayout,
